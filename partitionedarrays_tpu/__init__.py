@@ -1,11 +1,11 @@
-"""partitionedarrays_tpu: a TPU-native partitioned sparse linear-algebra
+"""partitionedarrays_tpu: a JAX partitioned sparse linear-algebra
 framework with the capabilities of PartitionedArrays.jl.
 
 Public API surface mirrors the reference's export list
 (src/PartitionedArrays.jl:14-196 plus PartitionedSolvers and HPCG),
-re-designed TPU-first: SPMD code over a ``jax.sharding.Mesh`` (or the
+re-designed for accelerators: SPMD code over a ``jax.sharding.Mesh`` (or the
 vmap-based serial/debug backend), static halo-exchange plans compiled into
-the XLA program, DIA/ELL device sparse formats with Pallas kernels, and
+the XLA program, DIA/ELL device sparse formats, and
 host-side (numpy/scipy) setup for partitioning and coarsening.
 """
 
@@ -22,7 +22,7 @@ from .backends import (
     with_multihost,
     with_serial,
 )
-from .config import enable_compilation_cache, pallas_enabled
+from .config import enable_compilation_cache
 
 # -- local storage & sparse kernels (L2) ------------------------------------
 from .ops.jagged import (

@@ -3,7 +3,7 @@
 The reference's single most important design decision is its L1 backend
 abstraction (serial Vector / DebugArray / MPIArray — reference:
 src/debug_array.jl, src/mpi_array.jl, selected via with_debug/with_mpi).
-The TPU-native equivalent: all per-part algorithm code is written once as an
+Here: all per-part algorithm code is written once as an
 SPMD function over *per-part* array slices, using named-axis collectives
 (``psum``/``ppermute``/``all_to_all``/``all_gather`` over axis ``"parts"``),
 and is executed through one of two mechanically equivalent drivers:
@@ -11,10 +11,10 @@ and is executed through one of two mechanically equivalent drivers:
 - **SerialBackend** ("debug" analogue): ``jax.vmap(f, axis_name="parts")``
   over a stacked leading part axis — all parts on ONE device, collectives
   become index shuffles.  Bit-identical semantics to the mesh run, usable on
-  CPU and on a single TPU chip.
+  CPU and on a single GPU.
 - **MeshBackend** (the distributed path): ``jax.shard_map`` over a
   ``jax.sharding.Mesh`` axis ``"parts"`` — one part per device, collectives
-  ride ICI/DCN as real XLA collectives.
+  are real XLA collectives (NCCL between GPUs).
 
 Convention: every array leaf entering/leaving a backend-run function carries
 a leading part axis of length ``n_parts``; per-part code sees the slice
@@ -44,10 +44,10 @@ class Backend:
 
     def device_context(self):
         """Context manager pinning eager/jit device builds to THIS
-        backend's platform.  Crucial when a plugin backend (e.g. a remote
-        TPU) is the process default but the mesh lives elsewhere (CPU
-        dryruns): without the pin, every setup-time ``jax.jit`` build
-        round-trips through the default platform's compiler."""
+        backend's devices.  Matters when the process default platform
+        (a GPU) is not where the mesh lives (a virtual CPU mesh): without
+        the pin, every setup-time ``jax.jit`` build would compile and run
+        on the default platform."""
         import contextlib
 
         return contextlib.nullcontext()
@@ -125,11 +125,10 @@ class MeshBackend(Backend):
         self.mesh = mesh
         self.n_parts = mesh.shape[AXIS]
         # If the mesh lives on a different platform than the process
-        # default (e.g. a CPU dryrun while a remote-TPU plugin is the
-        # default backend), pin the default device to the mesh's platform:
-        # otherwise every setup-time jnp/jit build would compile and run
-        # on the default platform and be dragged across afterwards —
-        # minutes of remote compiles for a CPU-mesh run.
+        # default (a virtual CPU mesh in a process whose default is the
+        # GPU), pin the default device to the mesh's platform: otherwise
+        # every setup-time jnp/jit build would compile and run on the
+        # default platform and be copied across afterwards.
         me = jax.process_index()
         first_local = next(
             (d for d in self.mesh.devices.flat if d.process_index == me), None
@@ -142,11 +141,6 @@ class MeshBackend(Backend):
         from . import config
 
         config.enable_compilation_cache()
-        if config.pallas_enabled():
-            # warm the pallas import tree now (1.5 s of python module
-            # compilation): otherwise the first matrix freeze pays it,
-            # which lands inside user-visible solver setup time
-            from .ops import spmv_pallas  # noqa: F401
 
     def spmd(self, f: Callable) -> Callable:
         spec = PartitionSpec(AXIS)
@@ -256,18 +250,22 @@ def with_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ):
-    """Multi-host entry point (the pod-scale analogue of the reference's
-    ``with_mpi``, src/mpi_array.jl:64-83).
+    """Multi-host entry point (the multi-process analogue of the
+    reference's ``with_mpi``, src/mpi_array.jl:64-83).
 
-    Initializes ``jax.distributed`` (auto-detected on TPU pods launched
-    with the standard runtime; pass coordinator/num_processes/process_id
-    explicitly elsewhere — on CPU set
+    Initializes ``jax.distributed`` when a coordinator is given (argument
+    or ``JAX_COORDINATOR_ADDRESS``; pass ``num_processes`` and
+    ``process_id`` with it — on CPU also set
     ``JAX_CPU_COLLECTIVES_IMPLEMENTATION=gloo``) and builds a
     :class:`MeshBackend` over the GLOBAL device set, so the same SPMD
-    program spans every host — collectives ride ICI within a slice and
-    DCN between slices.  ``jax.distributed.initialize`` MUST run before
-    any backend is touched; import this module first in a fresh process.
+    program spans every process.  With one process per GPU, pass
+    ``local_device_ids=[i]`` (or launch with ``CUDA_VISIBLE_DEVICES=i``)
+    so that each process opens only its own card: a JAX process reserves
+    most of every card it opens.  ``jax.distributed.initialize`` MUST run
+    before any backend is touched; import this module first in a fresh
+    process.
 
     Each process then runs the SAME setup code (multi-controller SPMD:
     host setup is deterministic and replicated, device arrays are
@@ -280,16 +278,9 @@ def with_multihost(
 
     Use as ``with_multihost(main)`` or ``backend = with_multihost()``.
     """
-    import jax
-
     import os
 
-    multiproc = (
-        coordinator_address is not None
-        or "JAX_COORDINATOR_ADDRESS" in os.environ
-        or os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0
-    )
-    if multiproc:
+    if coordinator_address is not None or "JAX_COORDINATOR_ADDRESS" in os.environ:
         # NOTE: do not query jax.process_count() here — it would
         # initialize the backends before jax.distributed does
         try:
@@ -297,6 +288,7 @@ def with_multihost(
                 coordinator_address=coordinator_address,
                 num_processes=num_processes,
                 process_id=process_id,
+                local_device_ids=local_device_ids,
             )
         except RuntimeError:
             pass  # already initialized

@@ -2,7 +2,7 @@
 
 Capability parity: HPCG/src/ref_cg.jl (preconditioned CG iterator,
 :40-71) and opt_cg.jl (:25-32 — the optimized variant; here both run the
-same compiled path, the "optimization" being the whole TPU-native stack).
+same compiled path, the "optimization" being the whole device stack).
 The per-kernel timing buckets of the reference are replaced by the
 analytical FLOP/byte model in report.py plus one wall-clock measurement of
 the full compiled set (per-op timers are meaningless under XLA fusion).
@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from ...psparse import PSparseMatrix, spmv
-from ...pvector import PVector, axpy, pdot
+from ...pvector import PVector, axpy, pdot, vdot
 from ...solvers.krylov import _as_col_vector, _as_row_vector
 
 
@@ -64,7 +64,7 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
     """PCG in the GS de-interleaved flat space for GHOSTED (multi-part)
     meshes.  Vectors, dots and axpys live in the core form; the A-apply is
     the fused core kernel plus the ghost-column contribution (one halo
-    exchange, folded through a cheap MXU interleave/deinterleave pair);
+    exchange, folded through an interleave/deinterleave pair);
     the preconditioner is the ghosted flat V-cycle.  Standard row order
     appears only at the exchange boundary and the level transfers."""
     gs = mg.gss[-1]
@@ -75,7 +75,7 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
     ax_name = backend.axis_name()
     dot = backend.spmd_cached(
         ("cgf_dot", col),
-        lambda: (lambda a, b: jax.lax.psum(jnp.vdot(a, b), ax_name)),
+        lambda: (lambda a, b: jax.lax.psum(vdot(a, b), ax_name)),
     )
 
     def a_apply(p):
@@ -130,14 +130,13 @@ def hpcg_cg_flat_g(mg, b: PVector, iterations: int = 50):
 def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     """PCG with every vector living in the GS de-interleaved FLAT space.
 
-    Single-part-per-chip fast path (valid when the finest level smooths in
-    flat space): the A-apply is the fused flat-space Pallas DIA kernel,
+    Single-part-per-device fast path (valid when the finest level smooths
+    in flat space): the A-apply is the flat-space DIA product,
     the MG preconditioner runs via ``apply_flat`` (its input is a zero-cost
     VIEW of the flat residual), and dots/axpys are permutation- and
     zero-padding-invariant, so they run directly on the flat buffers.
     Standard row order appears exactly twice per solve: b in, x out —
-    eliminating the per-iteration layout transforms that dominated the
-    V-cycle wall clock (2.5 ms/cycle of XLA relayout copies at 128^3).
+    eliminating the per-iteration layout transforms.
     """
     gs = mg.gss[-1]
     col = gs.colored
@@ -147,7 +146,7 @@ def hpcg_cg_flat(mg, b: PVector, iterations: int = 50):
     ax = backend.axis_name()
     dot = backend.spmd_cached(
         ("cgf_dot", col),
-        lambda: (lambda a, b: jax.lax.psum(jnp.vdot(a, b), ax)),
+        lambda: (lambda a, b: jax.lax.psum(vdot(a, b), ax)),
     )
 
     bf = gs.make_bd(b)  # (P, m, Lq) core — the only std->flat transform

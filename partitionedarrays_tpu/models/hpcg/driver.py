@@ -5,10 +5,10 @@ phase 1: reference CG (50 iterations, 2 sets) establishing the target
 tolerance; phase 2: optimized-CG validation (must reach the reference
 tolerance); phase 3: timed sets; then the rating report.
 
-TPU-native: each 50-iteration MG-preconditioned CG set is ONE compiled
-XLA program (matrices/smoothers travel as pytree arguments); wall time is
-measured with a host fetch fence around whole sets, so the fixed dispatch
-latency of a remote device amortizes over a set.
+Each 50-iteration MG-preconditioned CG set is ONE compiled XLA program
+(matrices/smoothers travel as pytree arguments); wall time is measured
+with a host fetch fence around whole sets, so the fixed dispatch latency
+amortizes over a set.
 """
 from __future__ import annotations
 
@@ -47,10 +47,9 @@ def hpcg_benchmark(
     operator, the CG vectors/updates and every dot run in df64 two-float
     (~f64) arithmetic (ops/df64.py, validated vs true f64); the MG
     preconditioner stays f32 (approximate inverse: precision only moves
-    the convergence rate).  TPU v5e has no f64 unit and XLA's x64
-    emulation is non-viable for these kernels, so this is how the
-    reference's Float64-everywhere capability
-    (HPCG/src/sparse_matrix.jl:115-118) is delivered on this hardware.
+    the convergence rate).  This is how the reference's
+    Float64-everywhere capability (HPCG/src/sparse_matrix.jl:115-118) is
+    delivered with jax x64 off.
     ``dtype`` is ignored (preconditioner f32, solve df64) in this mode."""
     import jax
     import jax.numpy as jnp
@@ -143,9 +142,37 @@ def hpcg_benchmark(
         x, norms = hpcg_cg(A, b, M=mg, iterations=iterations)
         return x.own, norms
 
+    # Every set runs through ONE compiled program, chained through a
+    # runtime scalar (b is rescaled by the previous set's final residual
+    # norm and the result un-scaled by linearity) so XLA cannot collapse
+    # the repeats; a single host fetch fences the whole chain.  This keeps
+    # the fixed dispatch latency out of the measured per-set time, like
+    # the reference's use of long `total_runtime` windows
+    # (HPCG/src/hpcg_benchmark.jl:81-88).  The chain length k is a RUNTIME
+    # argument (fori_loop lowers to a while_loop), so one set (k=1, scale
+    # exactly 1), the timed chains and the big executed window below all
+    # share ONE compiled executable; no chain length can leak a recompile
+    # into its timed region.
     @jax.jit
+    def run_chain(A, mg, b, k):
+        def body(i, carry):
+            scale, _, _ = carry
+            bs = _scale_b(b, scale)
+            x, norms = run_cg(A, mg, bs)
+            new_scale = 1.0 + norms[-1] / norms[0] * 1e-12
+            return (new_scale, norms / scale, x)
+
+        one = jnp.ones((), _b_dtype(b))
+        x0 = jnp.zeros_like((b[0] if df64_mode else b).own)
+        _, norms, x = jax.lax.fori_loop(
+            0, k, body,
+            (one, jnp.zeros((iterations + 1,), _b_dtype(b)), x0),
+        )
+        return norms, x
+
     def one_set(A, mg, b):
-        return run_cg(A, mg, b)
+        norms, x = run_chain(A, mg, b, jnp.int32(1))
+        return x, norms
 
     # compile (counted as optimization time, like the reference's opt phase)
     t_c0 = time.perf_counter()
@@ -169,6 +196,7 @@ def hpcg_benchmark(
     # instead of crashing the run (HPCG/src/hpcg_benchmark.jl:59-78,
     # report_results.jl tail).
     own, norms = one_set(A, mg, b)
+    solution = own
     opt_norms = np.asarray(norms)
     opt_rel = opt_norms / opt_norms[0]
     opt_iters = int(np.argmax(opt_rel <= tolerance)) if (opt_rel <= tolerance).any() else iterations
@@ -181,36 +209,10 @@ def hpcg_benchmark(
             f" reference tolerance {tolerance:.3e}"
         )
 
-    # phase 3: timed sets.  All sets run inside ONE compiled program,
-    # chained through a runtime scalar (b is rescaled by the previous
-    # set's final residual norm and the result un-scaled by linearity) so
-    # XLA cannot collapse the repeats; a single host fetch fences the
-    # whole window.  This keeps the remote-dispatch fixed latency out of
-    # the measured per-set time, like the reference's use of long
-    # `total_runtime` windows (HPCG/src/hpcg_benchmark.jl:81-88).
-    # the chain length k is a RUNTIME argument (fori_loop lowers to a
-    # while_loop), so every chain length — including the big executed
-    # window below — shares ONE compiled executable; no chain length can
-    # leak a recompile into its timed region.
-    @jax.jit
-    def run_chain(A, mg, b, k):
-        def body(i, carry):
-            scale, _ = carry
-            bs = _scale_b(b, scale)
-            x, norms = run_cg(A, mg, bs)
-            new_scale = 1.0 + norms[-1] / norms[0] * 1e-12
-            return (new_scale, norms / scale)
-
-        one = jnp.ones((), _b_dtype(b))
-        _, norms = jax.lax.fori_loop(
-            0, k, body, (one, jnp.zeros((iterations + 1,), _b_dtype(b)))
-        )
-        return norms
-
+    # phase 3: timed sets, as chains of the same compiled program
     n_sets = timed_sets
-    run1 = lambda A, mg, b: run_chain(A, mg, b, jnp.int32(1))  # noqa: E731
-    runN = lambda A, mg, b: run_chain(A, mg, b, jnp.int32(1 + n_sets))  # noqa: E731
-    np.asarray(run1(A, mg, b))  # compile (shared by every chain length)
+    run1 = lambda A, mg, b: run_chain(A, mg, b, jnp.int32(1))[0]  # noqa: E731
+    runN = lambda A, mg, b: run_chain(A, mg, b, jnp.int32(1 + n_sets))[0]  # noqa: E731
     np.asarray(runN(A, mg, b))  # warm
 
     def timed(f):
@@ -254,10 +256,9 @@ def hpcg_benchmark(
         # compile time inside the timed region.  (The previous AOT
         # ``lower().compile()`` did not populate the jit cache and the
         # timed call recompiled — measured: rated GF/s collapsed 3x.)
-        # The window is CHUNKED into ~15 s device executions: a single
-        # 60 s execution occasionally trips the remote worker's watchdog
-        # ("TPU worker process crashed"); per-chunk dispatch latency
-        # (~10 ms each, a handful of chunks) is noise against the window.
+        # The window is CHUNKED into ~15 s device executions, which keeps
+        # every single execution short; per-chunk dispatch latency (a
+        # handful of chunks) is noise against the window.
         # No timed_sets floor: large local shapes / df64 push per_set far
         # above 15 s / timed_sets and the floor would defeat the chunking.
         chunk = max(1, int(np.ceil(15.0 / max(per_set, 1e-6))))
@@ -266,7 +267,7 @@ def hpcg_benchmark(
         normsW = None
         while remaining > 0:
             k = min(chunk, remaining)
-            normsW = np.asarray(run_chain(A, mg, b, jnp.int32(k)))
+            normsW = np.asarray(run_chain(A, mg, b, jnp.int32(k))[0])
             remaining -= k
         time_solve = time.perf_counter() - t0w
         chain_consistent = chain_consistent and bool(
@@ -289,6 +290,7 @@ def hpcg_benchmark(
         time_solve=time_solve,
         time_setup=time_setup,
         time_optimization=time_optimization,
+        solution=solution,
         extra={
             "local_shape": list(local_shape),
             "parts_per_dir": list(parts_per_dir),

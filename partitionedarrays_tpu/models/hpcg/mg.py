@@ -6,9 +6,9 @@ restriction by injection of the even-coordinate points (restrict_operator
 :81-101), V-cycle with symmetric-GS pre/post smoothing and smooth-only
 coarsest solve (pc_solve! :314-328).
 
-TPU-native: the fine->coarse injection maps are static per-part OWN-index
-gather tables frozen at setup; restrict = gather, prolongate = scatter-add
-— no communication (injection points are interior to each part's box).
+The fine->coarse injection is a stride-2 slice of each part's C-ordered
+own box; restrict = slice, prolongate = interior-padded add — no
+communication (injection points are interior to each part's box).
 The V-cycle is unrolled over levels (static shapes per level) and fully
 jittable; smoothing uses the colored-DIA GS sweep.
 """
@@ -95,19 +95,10 @@ class HPCGMGPreconditioner:
             self.bs.append(b)
         # local box shape of each level (index = As index; 0 = coarsest).
         # The injection map is a pure stride-2 slice of the C-ordered box:
-        # restrict = stride-2 slice on the two major dims + a selection
-        # matmul on the lane dim (a lane-strided slice forces a relayout,
-        # ~2.7ms at 128^3; the 128x64 selection matmul is ~free on the
-        # MXU); prolongate = interior-padded (x2 dilated) add via lax.pad.
+        # restrict = stride-2 slice on all three dims; prolongate =
+        # interior-padded (x2 dilated) add via lax.pad.
         self.level_shapes: List[Tuple[int, int, int]] = [
             shapes[n_levels - 1 - l] for l in range(n_levels)
-        ]
-        # z-axis selection matrices (nz_fine, nz_fine/2), one per level > 0
-        self.zsels: List[jnp.ndarray] = [
-            jnp.asarray(
-                np.eye(self.level_shapes[l][2], dtype=np.dtype(dtype))[:, ::2]
-            )
-            for l in range(1, n_levels)
         ]
         self.backend = backend
 
@@ -124,14 +115,13 @@ class HPCGMGPreconditioner:
 
     # -- V-cycle -------------------------------------------------------
     def _restrict(self, l: int, r_own: jnp.ndarray) -> PVector:
-        """Injection restrict: stride-2 on major dims, selection matmul on
-        the lane (z) dim."""
+        """Injection restrict: the even-coordinate points (an exact
+        stride-2 slice)."""
         nx, ny, nz = self.level_shapes[l]
         P = r_own.shape[0]
         clay = self.As[l - 1].row_layout()
         r3 = r_own[:, : nx * ny * nz].reshape(P, nx, ny, nz)
-        rc3 = jnp.einsum("pxyz,zw->pxyw", r3[:, ::2, ::2, :], self.zsels[l - 1])
-        rc_own = _pad_to(rc3.reshape(P, -1), clay.n_own_pad)
+        rc_own = _pad_to(r3[:, ::2, ::2, ::2].reshape(P, -1), clay.n_own_pad)
         return PVector(
             rc_own,
             jnp.zeros((P, clay.n_ghost_pad), rc_own.dtype),
@@ -270,4 +260,4 @@ def _pad_to(a: jnp.ndarray, n: int) -> jnp.ndarray:
     return jnp.pad(a, ((0, 0), (0, n - a.shape[1])))
 
 
-_register_identity_pytree(HPCGMGPreconditioner, ("As", "gss", "zsels", "devs_pc"))
+_register_identity_pytree(HPCGMGPreconditioner, ("As", "gss", "devs_pc"))

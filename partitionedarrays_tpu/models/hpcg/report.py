@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Any, Dict, List
 
 
 @dataclass
@@ -25,6 +25,9 @@ class HPCGReport:
     time_setup: float = 0.0
     time_optimization: float = 0.0
     extra: Dict = field(default_factory=dict)
+    # own values [P, n_own_pad] of the phase-2 validation set's solution
+    # (not part of the summary)
+    solution: Any = field(default=None, repr=False)
 
     # -- FLOP model (report_results.jl:27-40) -------------------------
     def flops(self) -> Dict[str, float]:
@@ -135,14 +138,14 @@ class HPCGReport:
         elif dtype == "float64-df64":
             official = (
                 " (official-precision configuration: two-float df64 ~49-bit"
-                " arithmetic, validated vs true f64 — TPU has no native f64;"
+                " arithmetic, validated vs true f64, run with jax x64 off;"
                 " IEEE-f64 purists should read this as f64-equivalent, not"
                 " bitwise IEEE)"
             )
         else:
             official = " (NOT official-rules precision: official HPCG is f64)"
         lines = [
-            "HPCG-Benchmark (TPU-native partitionedarrays)",
+            "HPCG-Benchmark (partitionedarrays, JAX)",
             "",
             "Problem Summary:",
             f"Global number of rows = {self.nrow}",

@@ -1,7 +1,7 @@
 // Native host-side setup kernels.
 //
 // The reference reaches native code only through libmpi (src/mpi_array.jl);
-// in this framework the per-iteration native path is the compiled XLA/Pallas
+// in this framework the per-iteration native path is the compiled XLA
 // program, and THIS library accelerates the remaining host-side setup hot
 // loops (problem assembly, coarsening) that would otherwise run as
 // numpy/scipy passes: COO->CSR compression with duplicate summation

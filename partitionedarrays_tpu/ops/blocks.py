@@ -21,156 +21,51 @@ from .ell import ell_spmv, stack_ell, stack_ell_values
 
 @jax.tree_util.register_pytree_node_class
 class DeviceBlock:
-    """kind: "dia" (vals [P, n_off, R]) or "ell" (cols+vals [P, R, K]).
+    """kind: "dia" (vals [P, n_off, R]) or "ell" (cols+vals [P, R, K])."""
 
-    DIA blocks on Pallas targets additionally carry ``vflat``: the 1-D
-    SEGMENT-MAJOR copy of the diagonal values (segment j of T rows holds
-    its n_off*T values contiguously) used by the streaming SpMV kernel —
-    a (n_off, T) 2-D block would tile the n_off sublane dim up to the next
-    multiple of 8 and move up to 8/n_off extra HBM traffic (18.5% at the
-    27-pt stencil).  ``vals`` stays the logical layout for everything
-    else (diag extraction, fallbacks, GS builds).
-
-    ELL blocks additionally carry the SLOT-format arrays (ops/slot_spmv)
-    when the planner accepts the block: the lane-gather kernel runs the
-    gather path at HBM roofline (measured 31 us vs 13.4 ms for the flat
-    XLA gather on a 1.76M-nnz elasticity operator).  ``slot`` is
-    (idx, vals, srow, onehot, base) stacked over parts; ``slot_meta``
-    the static SlotMeta."""
-
-    def __init__(
-        self, kind, offsets, n_cols_pad, cols, vals, vflat=None, T=0,
-        slot=None, slot_meta=None,
-    ):
+    def __init__(self, kind, offsets, n_cols_pad, cols, vals):
         self.kind = kind
         self.offsets = offsets  # static tuple (dia) or None
         self.n_cols_pad = n_cols_pad
         self.cols = cols  # None for dia
         self.vals = vals
-        self.vflat = vflat  # None, or [P, nseg*n_off*T] (dia fast path)
-        self.T = T
-        self.slot = slot  # None, or (idx, vals, srow, onehot, base)
-        self.slot_meta = slot_meta
 
     def tree_flatten(self):
-        return (self.cols, self.vals, self.vflat, self.slot), (
-            self.kind, self.offsets, self.n_cols_pad, self.T, self.slot_meta,
-        )
+        return (self.cols, self.vals), (self.kind, self.offsets, self.n_cols_pad)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        kind, offsets, n_cols_pad, T, slot_meta = aux
-        cols, vals, vflat, slot = children
-        return cls(
-            kind, offsets, n_cols_pad, cols, vals, vflat, T, slot, slot_meta
-        )
+        kind, offsets, n_cols_pad = aux
+        cols, vals = children
+        return cls(kind, offsets, n_cols_pad, cols, vals)
 
     # per-part SPMD spmv: x is the per-part padded column vector
     def spmv(self, x: jnp.ndarray) -> jnp.ndarray:
-        from .. import config
-
         if self.kind == "dia":
-            from .spmv_pallas import (
-                dia_spmv_pallas_flat,
-                dia_spmv_pallas_viable,
-            )
-
-            R = self.vals.shape[-1]
-            if self.vflat is not None and config.pallas_enabled():
-                # Rq = the flat copy's padded row count (1024-granular)
-                Rq = self.vflat.shape[-1] // len(self.offsets)
-                if dia_spmv_pallas_viable(
-                    self.offsets, Rq, self.n_cols_pad, self.vals.dtype.itemsize
-                ):
-                    y = dia_spmv_pallas_flat(
-                        self.offsets, self.vflat, x, self.n_cols_pad,
-                        R=Rq, T=self.T,
-                    )
-                    return y if Rq == R else y[:R]
             return dia_spmv(self.offsets, self.vals, x, self.n_cols_pad)
-        if self.slot is not None and config.pallas_enabled():
-            from .slot_spmv import slot_spmv
-
-            s_idx, s_vals, s_srow, s_onehot, s_base = self.slot
-            y = slot_spmv(s_idx, s_vals, s_srow, s_onehot, s_base, x, self.slot_meta)
-            R = self.vals.shape[-2]
-            return y if y.shape[-1] == R else y[:R]
         return ell_spmv(self.cols, self.vals, x)
 
     def nbytes(self) -> int:
         n = int(np.prod(self.vals.shape)) * self.vals.dtype.itemsize
         if self.cols is not None:
             n += int(np.prod(self.cols.shape)) * 4
-        if self.slot is not None:
-            for a in self.slot:
-                if a is not None:
-                    n += int(np.prod(a.shape)) * a.dtype.itemsize
         return n
 
     def astype(self, dtype) -> "DeviceBlock":
         """Values-cast copy (cols/offsets shared).  Used for reduced-
         precision preconditioner copies (kernels accumulate in the x
-        dtype, so bf16 values halve the dominant HBM stream)."""
-        if self.kind == "dia":
-            return make_dia_block(
-                self.offsets, self.n_cols_pad, self.vals.astype(dtype)
-            )
-        slot = None
-        if self.slot is not None:
-            s_idx, s_vals, s_srow, s_onehot, s_base = self.slot
-            slot = (s_idx, s_vals.astype(dtype), s_srow, s_onehot, s_base)
+        dtype, so bf16 values halve the dominant memory stream)."""
         return DeviceBlock(
-            self.kind,
-            self.offsets,
-            self.n_cols_pad,
-            self.cols,
+            self.kind, self.offsets, self.n_cols_pad, self.cols,
             self.vals.astype(dtype),
-            slot=slot,
-            slot_meta=self.slot_meta,
         )
 
 
-import functools
-
-
-@functools.partial(jax.jit, static_argnames=("T", "Rq"))
-def _dia_flat_layout(v, T: int, Rq: int):
-    P, n_off, R = v.shape
-    if Rq != R:
-        # pad rows up to the kernel tile granularity with PROVABLY ZERO
-        # diagonal values — the kernel's extra output rows are sliced off
-        # in DeviceBlock.spmv
-        v = jnp.pad(v, ((0, 0), (0, 0), (0, Rq - R)))
-    nseg = Rq // T
-    return v.reshape(P, n_off, nseg, T).transpose(0, 2, 1, 3).reshape(P, -1)
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m if x > 0 else 0
-
-
 def make_dia_block(offsets, n_cols_pad: int, vals) -> DeviceBlock:
-    """DIA DeviceBlock from device-resident logical values [P, n_off, R],
-    attaching the segment-major flat copy when the Pallas path is viable
-    (built ON DEVICE — one relayout at freeze, no extra H2D).  The flat
-    copy's row count Rq is padded up to the 1024-granular kernel tile: the
-    layout-wide n_own_pad is only 512-granular (e.g. FEM elasticity at
-    192000 rows), and no power-of-two tile divides that."""
-    from .. import config
-    from .spmv_pallas import _pick_tile, dia_spmv_pallas_viable
-
-    offsets = tuple(int(o) for o in offsets)
-    P, n_off, R = (int(s) for s in vals.shape)
-    Rq = _round_up(R, 1024)
-    vflat, T = None, 0
-    if (
-        config.pallas_enabled()
-        and offsets
-        and dia_spmv_pallas_viable(offsets, Rq, n_cols_pad, vals.dtype.itemsize)
-    ):
-        T = _pick_tile(Rq, n_off, vals.dtype.itemsize)
-        vflat = _dia_flat_layout(vals, T, Rq)
-    return DeviceBlock("dia", offsets, n_cols_pad, None, vals, vflat, T)
+    """DIA DeviceBlock from device-resident logical values [P, n_off, R]."""
+    return DeviceBlock(
+        "dia", tuple(int(o) for o in offsets), n_cols_pad, None, vals
+    )
 
 
 def freeze_block(
@@ -185,12 +80,13 @@ def freeze_block(
     diagonal set AND the dense-diagonal storage does not exceed the ELL
     footprint; else ELL.
 
-    ``max_diags`` is generous (128): TPU has no hardware gather, so the
-    ELL path runs ~3 orders of magnitude below roofline — any fixed-offset
-    band structure (7/27-pt stencils, Q1 FEM at 27, interleaved Q1
-    elasticity at 81, box-aggregated Galerkin levels) must land on the
-    streamed DIA kernels.  The storage guard below keeps DIA off blocks
-    whose band is mostly empty (dense-diagonal storage > ELL footprint)."""
+    ``max_diags`` is 128, so every fixed-offset band structure (7/27-pt
+    stencils, Q1 FEM at 27, interleaved Q1 elasticity at 81,
+    box-aggregated Galerkin levels) lands on the gather-free DIA path,
+    which also moves no column indices.  Whether an 81-diagonal band is
+    cheaper as ELL on the GPU is not measured yet.  The storage guard below
+    keeps DIA off blocks whose band is mostly empty (dense-diagonal
+    storage > ELL footprint)."""
     csrs = [b.tocsr() for b in blocks]
     if prefer_dia:
         offsets = dia_viable(csrs, max_diags=max_diags)
@@ -207,67 +103,25 @@ def freeze_block(
                     jnp.asarray(vals),
                 )
     # refill fast path: at FIXED sparsity (psparse_refill mutates the same
-    # scipy objects' .data in place) reuse the cached slot plan and the
-    # device-resident structure arrays — only values re-plan + re-upload
+    # scipy objects' .data in place) reuse the device-resident column
+    # table — only the value planes are restacked and uploaded
     sig = tuple((id(b), b.nnz) for b in csrs)
-    if cache is not None and cache.get("sig") == sig and "plan" in cache:
-        plan = cache["plan"]
-        cols_dev = cache["ell_cols"]
+    if cache is not None and cache.get("sig") == sig:
         vals = stack_ell_values(csrs, n_rows_pad, cache["ell_K"])
-        if plan is None:
-            return DeviceBlock(
-                "ell", None, n_cols_pad, cols_dev, jnp.asarray(vals)
-            )
-        from .slot_spmv import refill_slot_vals
-
-        s_idx, _, s_srow, s_onehot, s_base = cache["slot_dev"]
-        slot = (
-            s_idx,
-            jnp.asarray(refill_slot_vals(plan, csrs)),
-            s_srow,
-            s_onehot,
-            s_base,
-        )
         return DeviceBlock(
-            "ell", None, n_cols_pad, cols_dev, jnp.asarray(vals),
-            slot=slot, slot_meta=plan.meta,
+            "ell", None, n_cols_pad, cache["ell_cols"], jnp.asarray(vals)
         )
     cols, vals = stack_ell(csrs, n_rows_pad)
     cols_dev = jnp.asarray(cols)
-    slot, slot_meta, plan = _freeze_slot(csrs, n_rows_pad, n_cols_pad)
     if cache is not None:
         cache.clear()
         # refs keeps the keyed csr objects alive: id() in `sig` is only
         # meaningful while the objects live (GC + id reuse could otherwise
-        # false-hit the cache with a stale structure plan)
+        # false-hit the cache with a stale column table)
         cache.update(
-            sig=sig, plan=plan, ell_cols=cols_dev, ell_K=cols.shape[-1],
-            slot_dev=slot, refs=csrs,
+            sig=sig, ell_cols=cols_dev, ell_K=cols.shape[-1], refs=csrs,
         )
-    return DeviceBlock(
-        "ell", None, n_cols_pad, cols_dev, jnp.asarray(vals),
-        slot=slot, slot_meta=slot_meta,
-    )
-
-
-def _freeze_slot(csrs, n_rows_pad: int, n_cols_pad: int):
-    """Build the slot-format device arrays for an ELL block ((None, None,
-    None) when the planner declines).  The one-hot routing matrices are
-    derived on device once here — see ops/slot_spmv.slot_onehot."""
-    from .slot_spmv import build_slot_plan, slot_onehot
-
-    plan = build_slot_plan(csrs, n_rows_pad, n_cols_pad)
-    if plan is None:
-        return None, None, None
-    srow = jnp.asarray(plan.srow)
-    slot = (
-        jnp.asarray(plan.idx),
-        jnp.asarray(plan.vals),
-        srow,
-        slot_onehot(srow, plan.meta.window, jnp.dtype(plan.vals.dtype)),
-        jnp.asarray(plan.base),
-    )
-    return slot, plan.meta, plan
+    return DeviceBlock("ell", None, n_cols_pad, cols_dev, jnp.asarray(vals))
 
 
 # -- df64 (two-float) block pairs -------------------------------------------
@@ -277,12 +131,9 @@ def freeze_block_pair(
 ) -> Tuple["DeviceBlock", "DeviceBlock"]:
     """Freeze f64 host blocks into a (hi, lo) pair of f32 DeviceBlocks with
     identical structure — the storage of the official-precision (df64)
-    path (ops/df64.py).  DIA when banded (the pair's Pallas tile budgets
-    TWO value streams, so T may be smaller than the f32 block's); the ELL
-    pair shares one column-index array."""
+    path (ops/df64.py).  DIA when banded; the ELL pair shares one
+    column-index array."""
     from . import df64 as df
-    from .. import config
-    from .spmv_pallas import _pick_tile, dia_spmv_pallas_df_viable
 
     csrs = [b.tocsr().astype(np.float64) for b in blocks64]
     offsets = dia_viable(csrs, max_diags=128)
@@ -291,19 +142,8 @@ def freeze_block_pair(
         if offsets.size <= max(2 * kmax, 4):
             vals64 = stack_dia(csrs, n_rows_pad, offsets)  # [P, n_off, R] f64
             hi, lo = df.from_f64(vals64)
-            offs = tuple(int(o) for o in offsets)
-            P, n_off, R = hi.shape
-            Rq = _round_up(R, 1024)
-            vfh = vfl = None
-            T = 0
-            if config.pallas_enabled() and dia_spmv_pallas_df_viable(
-                offs, Rq, n_cols_pad
-            ):
-                T = _pick_tile(Rq, 2 * n_off, 4)
-                vfh = _dia_flat_layout(jnp.asarray(hi), T, Rq)
-                vfl = _dia_flat_layout(jnp.asarray(lo), T, Rq)
-            bh = DeviceBlock("dia", offs, n_cols_pad, None, jnp.asarray(hi), vfh, T)
-            bl = DeviceBlock("dia", offs, n_cols_pad, None, jnp.asarray(lo), vfl, T)
+            bh = make_dia_block(offsets, n_cols_pad, jnp.asarray(hi))
+            bl = make_dia_block(offsets, n_cols_pad, jnp.asarray(lo))
             return bh, bl
     cols, vals64 = stack_ell(csrs, n_rows_pad)
     hi, lo = df.from_f64(vals64)
@@ -315,21 +155,8 @@ def freeze_block_pair(
 
 def block_spmv_df(bh: "DeviceBlock", bl: "DeviceBlock", x_pair):
     """y = block @ x in df64; per-part SPMD kernel on a freeze_block_pair."""
-    from .. import config
-    from .df64 import dia_spmv_df, ell_spmv_df, zeros as df_zeros
-    from .spmv_pallas import dia_spmv_pallas_df_viable, dia_spmv_pallas_flat_df
+    from .df64 import dia_spmv_df, ell_spmv_df
 
     if bh.kind == "dia":
-        if not bh.offsets:
-            return df_zeros((bh.vals.shape[-1],), bh.vals.dtype)
-        R = bh.vals.shape[-1]
-        if bh.vflat is not None and config.pallas_enabled():
-            Rq = bh.vflat.shape[-1] // len(bh.offsets)
-            if dia_spmv_pallas_df_viable(bh.offsets, Rq, bh.n_cols_pad):
-                yh, yl = dia_spmv_pallas_flat_df(
-                    bh.offsets, bh.vflat, bl.vflat, x_pair, bh.n_cols_pad,
-                    R=Rq, T=bh.T,
-                )
-                return (yh, yl) if Rq == R else (yh[:R], yl[:R])
         return dia_spmv_df(bh.offsets, bh.vals, bl.vals, x_pair, bh.n_cols_pad)
     return ell_spmv_df(bh.cols, bh.vals, bl.vals, x_pair)

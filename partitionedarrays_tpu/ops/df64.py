@@ -1,14 +1,10 @@
 """Double-float ("df64") arithmetic: f64-equivalent precision from f32 pairs.
 
-TPU v5e has no f64 hardware.  JAX's x64 mode does lower f64 HLO on the TPU
-backend, but the emulation is unusable for this library's kernels (measured:
-a 32^3 colored-GS sweep compiles in ~30 s and its execution never completes;
-Pallas custom calls are rejected outright by the X64 rewriting).  The
-TPU-native answer is double-float arithmetic: every value is an unevaluated
-sum ``hi + lo`` of two f32 with ``|lo| <= ulp(hi)/2``, giving ~49 bits of
-significand (IEEE f64 has 53) through Dekker/Knuth error-free
-transformations built from plain f32 VPU ops — fully vectorized, usable
-inside Pallas kernels and XLA alike.
+Every value is an unevaluated sum ``hi + lo`` of two f32 with
+``|lo| <= ulp(hi)/2``, giving ~49 bits of significand (IEEE f64 has 53)
+through Dekker/Knuth error-free transformations built from plain f32
+operations — fully vectorized, and usable with jax x64 off (the library
+default), so f32 arrays and f64-grade arithmetic live in one program.
 
 This is the "official-precision" configuration of the HPCG benchmark here
 (models/hpcg/cg.py::hpcg_cg_df64): the fine-operator SpMV, the CG vector
@@ -22,7 +18,7 @@ technique for extending the available precision" (1971); D. E. Knuth,
 TAOCP vol. 2 (two_sum); Hida/Li/Bailey's ddfun conventions.
 Reference-capability counterpart: the reference simply uses Float64
 everywhere (e.g. /root/reference/HPCG/src/sparse_matrix.jl:115-118);
-this module is what makes that capability real on f32-only hardware.
+this module delivers that capability with jax x64 off.
 """
 from __future__ import annotations
 
@@ -61,37 +57,8 @@ def _pin(x):
     no associativity/contraction chain can cross into its load-bearing
     roundings; interior low-order terms stay unpinned (a contraction there
     moves the result by <= 1 ulp of lo, which the algebra tolerates).
-    Cost: ~1 VPU op each — noise against the HBM-bound df64 SpMV."""
+    Cost: ~1 vector op each — noise against the memory-bound df64 SpMV."""
     return jax.lax.reduce_precision(x, 8, 23)
-
-
-def two_sum_raw(a, b):
-    """two_sum WITHOUT pins — for Pallas kernels only (Mosaic does not
-    lower reduce_precision, and its direct vector lowering performs none of
-    the XLA-side remat/contraction/reassociation rewrites _pin guards
-    against; validated on hardware against the pinned XLA path)."""
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    return s, e
-
-
-def quick_two_sum_raw(a, b):
-    s = a + b
-    e = b - (s - a)
-    return s, e
-
-
-def two_prod_raw(a, b):
-    p = a * b
-    a1 = a * _SPLIT
-    ah = a1 - (a1 - a)
-    al = a - ah
-    b1 = b * _SPLIT
-    bh = b1 - (b1 - b)
-    bl = b - bh
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
 
 
 def two_sum(a, b):
@@ -238,8 +205,7 @@ def zeros(shape, dtype=jnp.float32) -> Tuple:
     return jnp.zeros(shape, dtype), jnp.zeros(shape, dtype)
 
 
-# -- df64 DIA SpMV (XLA composition; the Pallas twin lives in
-#    ops/spmv_pallas.py::dia_spmv_pallas_flat_df) --------------------------
+# -- df64 DIA SpMV --------------------------------------------------------
 
 def dia_spmv_df(offsets, vals_hi, vals_lo, x: Tuple, n_cols_pad: int) -> Tuple:
     """y = A @ x with A and x in df64; per-part SPMD kernel.
@@ -271,8 +237,7 @@ def dia_spmv_df(offsets, vals_hi, vals_lo, x: Tuple, n_cols_pad: int) -> Tuple:
 def ell_spmv_df(cols, vals_hi, vals_lo, x: Tuple) -> Tuple:
     """df64 ELL SpMV: y[r] = sum_k vals[r,k] * x[cols[r,k]] with df64
     products and a compensated accumulation over the K lanes (vectorized
-    over rows; K gathers — the gather-path cost caveat of ops/ell.py
-    applies on TPU).  Padding lanes carry OOB columns (gather fills 0)
+    over rows; K gathers).  Padding lanes carry OOB columns (gather fills 0)
     and zero values."""
     K = cols.shape[-1]
     R = cols.shape[:-1]

@@ -1,7 +1,7 @@
 """DIA (diagonal) sparse format: the fast-path device layout for SpMV.
 
-TPU has no hardware gather, so the ELL path (x[cols]) is memory-latency
-bound and catastrophically slow.  But after C-order block partitioning,
+The ELL path (x[cols]) gathers and moves a column index per nonzero.
+After C-order block partitioning,
 every stencil/FEM own_own block is *banded in local indices*: the nonzeros
 sit on a small set of constant diagonals (7 for FDM-3D, 27 for HPCG, 9/27
 for Q1 FEM).  Storing those diagonals densely turns SpMV into
@@ -9,15 +9,15 @@ for Q1 FEM).  Storing those diagonals densely turns SpMV into
     y = sum_d vals[d, :] * shift(x, offset_d)
 
 — a handful of statically-shifted contiguous vector streams that XLA fuses
-into one stencil pass at HBM speed-of-light.  DIA also halves traffic vs
-ELL (no column indices).
+into one stencil pass bound by memory bandwidth.  DIA also halves traffic
+vs ELL (no column indices).
 
 The own_ghost block (box surface, irregular columns) and unstructured
 matrices (e.g. AMG Galerkin products) keep the ELL gather path; the format
 is chosen per block at freeze time (see psparse.DeviceSpMat).
 
 Reference counterpart: the CSR/CSC spmv! loops (src/sparse_utils.jl:
-609-690) — same math, layout re-designed for the VPU.
+609-690) — same math, layout re-designed for vector hardware.
 """
 from __future__ import annotations
 

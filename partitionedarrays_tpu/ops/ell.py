@@ -1,17 +1,16 @@
 """Padded ELL sparse format: the device-resident layout for SpMV.
 
 The reference keeps per-part CSC/CSR blocks and runs scalar row loops
-(spmv!, reference: src/sparse_utils.jl:609-690).  On TPU, dynamic row
-lengths defeat XLA tiling, so each split block (own_own, own_ghost, ...)
+(spmv!, reference: src/sparse_utils.jl:609-690).  Dynamic row lengths
+defeat static shapes under jit, so each split block (own_own, own_ghost, ...)
 is frozen at setup into ELL: ``cols[int32 R, K]`` / ``vals[R, K]`` with K =
 max nnz/row, padding lanes holding an out-of-bounds column (gathered as 0
 via ``mode="fill"``) and zero value.  For the stencil matrices of the
 benchmark suite (7-pt/27-pt Laplacians, Q1 FEM) rows are near-uniform, so
-the padding waste is small and every lane maps onto the 8×128 VPU.
+the padding waste is small.
 
 SpMV is then a dense gather + multiply + row reduction — fully fusable by
-XLA and replaceable by a Pallas kernel with the same signature
-(ops/spmv_pallas.py).
+XLA.
 """
 from __future__ import annotations
 

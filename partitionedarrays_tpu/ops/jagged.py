@@ -6,7 +6,7 @@ Capability parity with the reference's JaggedArray (reference:
 src/jagged_array.jl:107-122, length_to_ptrs! :11, rewind_ptrs! :26,
 jagged_array :195).
 
-Unlike the reference (which uses it for MPI wire buffers), the TPU build uses
+Unlike the reference (which uses it for MPI wire buffers), this build uses
 JaggedArray only at setup time on host; device-side communication buffers are
 *padded dense* arrays so shapes are static under ``jit`` (see
 parallel/exchange_plan.py).

@@ -5,9 +5,9 @@ Capability parity with the reference's format-generic sparse utilities
 ``nzindex``/``precompute_nzindex``/``sparse_matrix[!]`` (:256-466),
 ``spmv``/``spmtv`` (:609-690), ``SubSparseMatrix`` (:127-248).
 
-Design note (TPU-first): these run on *host* during problem assembly and
+Design note: these run on *host* during problem assembly and
 solver setup only.  The per-iteration device path uses the padded ELL layout
-(ops/ell.py) and XLA/Pallas kernels; re-assembly at fixed sparsity
+(ops/ell.py) and XLA kernels; re-assembly at fixed sparsity
 (``sparse_matrix!`` parity) becomes a pure device gather using the
 ``precompute_nzindex`` permutation, so refilling values never leaves the
 device once the pattern is frozen.

@@ -6,7 +6,7 @@ neighbor lists precomputed once (reference: ExchangeGraph + exchange!,
 src/primitives.jl:728-1042; MPI impl src/mpi_array.jl:525-614; cache
 construction src/p_vector.jl:418-577).
 
-TPU-native translation: the exchange graph is frozen at setup into
+Device translation: the exchange graph is frozen at setup into
 
 - a schedule of **edge-colored ``ppermute`` rounds**: the directed neighbor
   graph is edge-colored so that within a round every part sends to at most

@@ -4,7 +4,7 @@ The reference's setup operations (assemble, consistent, spmm, repartition,
 AMG coarsening) run with each MPI rank holding only its own part's data and
 exchange ragged per-neighbor messages through Isend/Irecv
 (/root/reference/src/p_sparse_matrix.jl:213-289, :1590-2040;
-/root/reference/src/mpi_array.jl:539-614).  The TPU-native analogue here:
+/root/reference/src/mpi_array.jl:539-614).  The analogue here:
 
 - **single process** (SerialBackend, or a MeshBackend whose mesh lives in
   one process): part-to-part messages are plain dict passthrough — no copy,

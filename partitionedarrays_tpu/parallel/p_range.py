@@ -15,7 +15,7 @@ editing (:199-259), ``find_owner`` (:346), assembly graph + cache
 ``trivial_partition`` (:774), ``renumber_partition`` (:782),
 ``local_range`` (:806-818).
 
-TPU-first design: this layer is **pure host-side numpy** and runs only at
+Design: this layer is **pure host-side numpy** and runs only at
 setup time.  Everything the compiled program needs (pack/unpack index
 tables, padded buffer sizes, neighbor rounds) is derived from these objects
 once and frozen into static device arrays (see exchange_plan.py).  Unlike

@@ -8,7 +8,7 @@ Capability parity with the reference's backend-generic collectives
 ``ExchangeGraph`` + discovery (:728-859), ``exchange`` (:921-1042) and the
 fake-async task model (:122-141).
 
-TPU-native role: in this framework the per-iteration communication is
+Role: in this framework the per-iteration communication is
 compiled into the XLA program (parallel/exchange_plan.py); these
 primitives serve the SETUP phase and user-level glue, where all parts are
 visible in one host process — so every implementation is the reference's

@@ -10,7 +10,7 @@ fixed sparsity ``psparse!`` (:1291-1305), ``assemble`` (:1564-1816) and
 ``spmm``/``spmtm``/``rap`` (:2212-2296), ``repartition`` (:2371),
 ``centralize`` (:2463), ``psystem`` (:2475) and the LU fallback (:2561).
 
-TPU-native split of responsibilities:
+Split of responsibilities:
 
 - **Setup on host** (this file, numpy/scipy): triplet shuffling to row
   owners, ghost-column discovery, 4-block classification, CSR compression,
@@ -1608,9 +1608,7 @@ def spmv(
     has_y = y is not None
     if has_y and beta is None:
         beta = 1.0
-    # alpha==1.0 (the hot default) statically skips the epilogue entirely:
-    # a Pallas SpMV output cannot fuse with outer XLA elementwise ops, so an
-    # unconditional `alpha*out` would cost a full extra vector pass
+    # alpha==1.0 (the hot default) statically skips the epilogue entirely
     has_alpha = not (isinstance(alpha, (int, float)) and alpha == 1.0)
     # scalars must carry the leading parts axis to ride vmap/shard_map
     P = rlay.n_parts
@@ -2445,11 +2443,7 @@ def _freeze_local_ell(A: PSparseMatrix) -> "DeviceSpMat":
         return DeviceSpMat(oo, oh)
 
     no = rlay.n_own_pad
-    slot, slot_meta = _freeze_local_slot(A, rlay, clay)
-    oo = _lazy_ell_block(
-        A, "oo", int(dims[0]), no, clay.n_own_pad,
-        slot=slot, slot_meta=slot_meta,
-    )
+    oo = _lazy_ell_block(A, "oo", int(dims[0]), no, clay.n_own_pad)
     oh = _lazy_ell_block(A, "oh", int(dims[1]), no, max(clay.n_ghost_pad, 1))
     return DeviceSpMat(oo, oh)
 
@@ -2461,8 +2455,6 @@ def _lazy_ell_block(
     n_rows_pad: int,
     n_cols_pad: int,
     transpose: bool = False,
-    slot=None,
-    slot_meta=None,
 ) -> DeviceBlock:
     """ELL DeviceBlock whose [P, rows, K] arrays are materialized ONLY for
     this process's parts (lazy provider protocol of MeshBackend.shard).
@@ -2492,10 +2484,7 @@ def _lazy_ell_block(
         return thunk
 
     shard = A.backend.shard
-    return DeviceBlock(
-        "ell", None, n_cols_pad, shard(lazy(0)), shard(lazy(1)),
-        slot=slot, slot_meta=slot_meta,
-    )
+    return DeviceBlock("ell", None, n_cols_pad, shard(lazy(0)), shard(lazy(1)))
 
 
 def _freeze_local_transpose(A: PSparseMatrix):
@@ -2521,96 +2510,6 @@ def _freeze_local_transpose(A: PSparseMatrix):
         transpose=True,
     )
     return (ooT, ohT)
-
-
-def _freeze_local_slot(A: PSparseMatrix, rlay, clay):
-    """Cross-process-AGREED slot freeze for the local-only own_own block:
-    every process allgather-maxes the per-rt dim table, deterministically
-    selects the same (rt, Q, S, s_total), plans its LOCAL parts with the
-    forced dims and materializes only its shards lazily.  Returns
-    (None, None) when the agreed layout is not viable (callers keep the
-    padded-ELL gather)."""
-    import jax.experimental.multihost_utils as mhu
-
-    from .ops.slot_spmv import (
-        _MAX_Q,
-        _MAX_SLOT_BYTES,
-        _MAX_WINDOW_ROWS,
-        _MAX_X2D_VMEM,
-        build_slot_plan,
-        plan_dim_table,
-    )
-
-    def _ru(x, m):
-        return ((x + m - 1) // m) * m if x > 0 else 0
-
-    P = rlay.n_parts
-    blocks = [b["oo"] for b in A.blocks]
-    tbl = plan_dim_table(blocks, rlay.n_own_pad)
-    tbl = np.asarray(mhu.process_allgather(tbl)).max(0)
-    best = None
-    for k, rt in enumerate((128, 64, 32, 16, 8)):
-        Q = max(int(tbl[k, 0]), 1)
-        S = max(int(tbl[k, 1]), 8)
-        mb = int(tbl[k, 2])
-        if S > _MAX_WINDOW_ROWS or Q > _MAX_Q:
-            continue
-        n_tiles = _ru(max(_ru(rlay.n_own_pad, rt) // rt, 1), 8)
-        cost = P * n_tiles * Q * 128 * 8
-        if cost > _MAX_SLOT_BYTES:
-            continue
-        s_total = _ru(max(_ru(clay.n_own_pad, 128) // 128, mb + S, 8), 8)
-        if s_total * 512 > _MAX_X2D_VMEM:
-            continue
-        if best is None or cost < best[0]:
-            best = (cost, rt, Q, S, s_total)
-    if best is None:
-        return None, None
-    _, rt, Q, S, s_total = best
-    plan = build_slot_plan(
-        blocks, rlay.n_own_pad, clay.n_own_pad,
-        force_rt=rt, force_dims=(Q, S, s_total),
-    )
-    if plan is None or plan.meta != plan.meta._replace(
-        n_slot_rows=Q, window=S, s_total=s_total
-    ):
-        return None, None
-
-    local = set(A.backend.local_parts())
-    meta = plan.meta
-
-    def lazy(arr, dtype):
-        def thunk():
-            def provider(idx):
-                p = idx[0].start if idx[0].start is not None else 0
-                return np.asarray(arr[p], dtype=dtype)[None]
-
-            return (P,) + arr.shape[1:], np.dtype(dtype), provider
-
-        return thunk
-
-    def lazy_onehot():
-        def thunk():
-            def provider(idx):
-                p = idx[0].start if idx[0].start is not None else 0
-                oh = (
-                    plan.srow[p][..., None] == np.arange(S, dtype=np.int32)
-                ).astype(A.dtype)
-                return oh[None]
-
-            return (P, meta.n_tiles, Q, S), np.dtype(A.dtype), provider
-
-        return thunk
-
-    shard = A.backend.shard
-    slot = (
-        shard(lazy(plan.idx, np.int8)),
-        shard(lazy(plan.vals, A.dtype)),
-        shard(lazy(plan.srow, np.int32)),
-        shard(lazy_onehot()),
-        shard(lazy(plan.base, np.int32)),
-    )
-    return slot, meta
 
 
 def repartition_system(
@@ -2711,12 +2610,10 @@ def psystem_refill(A: PSparseMatrix, V_parts, Vb_parts, cache):
 def device_df64(A: PSparseMatrix):
     """Freeze (hi, lo) f32 DeviceSpMat pair from the f64 host blocks of
     ``A`` (assembled only).  This is the matrix storage of the
-    official-precision HPCG configuration: TPU v5e has no f64 unit and
-    XLA's x64 software emulation is non-viable for these kernels (a 32^3
-    GS sweep never completes), so f64-equivalent precision runs as
-    double-float arithmetic (capability parity with the reference's
-    Float64-everywhere storage, /root/reference/HPCG/src/sparse_matrix.jl:
-    115-118)."""
+    official-precision HPCG configuration, which runs f64-equivalent
+    precision as double-float arithmetic with jax x64 off (capability
+    parity with the reference's Float64-everywhere storage,
+    /root/reference/HPCG/src/sparse_matrix.jl:115-118)."""
     from .ops.blocks import freeze_block_pair
 
     if A._device_df is None:

@@ -8,7 +8,7 @@ constructors ``pfill/pzeros/pones/prand/prandn`` (:1050-1090), reductions
 (:1189-1206), out-of-place ``assemble``/``consistent`` (:1323-1398) and
 ``repartition`` (:1401-1466).
 
-TPU-native design: the "array of parts" is ONE stacked, padded device array
+Device design: the "array of parts" is ONE stacked, padded device array
 per field — ``own: dtype[P, n_own_pad]``, ``ghost: dtype[P, n_ghost_pad]``
 — sharded over the ``"parts"`` mesh axis on the mesh backend.  Padding
 lanes are kept at zero as an invariant so dot/norm/sum need no masking; ops
@@ -542,10 +542,16 @@ def _psum_scalar(backend: Backend, key: str, per_part):
     )
 
 
+def vdot(a, b):
+    """Per-part dot product at full f32 precision: a default-precision f32
+    dot may run in TF32 on the GPU."""
+    return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def pdot(x: PVector, y: PVector):
     """Global dot product over own values (parity: dot,
     src/p_vector.jl:1189-1192).  Returns a scalar (0-d jnp array)."""
-    f = _psum_scalar(x.backend, "dot", lambda a, b: jnp.vdot(a, b))
+    f = _psum_scalar(x.backend, "dot", vdot)
     return f(x.own, y.own)[0]
 
 
@@ -709,7 +715,7 @@ def pchebyshev(x: PVector, y: PVector):
 # reductions run compensated (ops/df64.py) so dot/norm match true f64 to
 # ~1e-14 relative.  Capability parity: the reference is Float64 everywhere
 # (e.g. /root/reference/src/p_vector.jl uses the element type of the local
-# vectors); on f32-only TPUs this tier is what makes those tolerances real.
+# vectors); this tier reaches those tolerances with jax x64 off.
 # ---------------------------------------------------------------------------
 
 def pvector_df64(own_f64_parts: Sequence[np.ndarray], pr: PRange, backend: Backend):

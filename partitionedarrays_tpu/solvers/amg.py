@@ -7,14 +7,14 @@ Capability parity with PartitionedSolvers/src/amg.jl: Vanek aggregation
 coarse-level size control (:523-542), hierarchy setup / V- and W-cycles /
 statistics (:757-942), default nullspace (:2-11).
 
-TPU-native split: ALL coarsening runs on host at setup, DISTRIBUTED over
+Split: ALL coarsening runs on host at setup, DISTRIBUTED over
 the per-part blocks (per-part aggregation, blockwise S = I - omega D^-1 A,
 the distributed spmm/spmtm Galerkin product, a neighbor-exchange power
 method — no global matrix is materialized anywhere in the setup); the
 cycle is device-resident and jittable — smoothing via the colored-DIA /
 multicolor GS, restriction/prolongation via the frozen transpose/forward
 SpMV of P, and the coarsest solve as a replicated dense inverse (formed
-from gathered LU factors at setup; one MXU matmul per cycle) applied
+from gathered LU factors at setup; one matrix-vector product per cycle) applied
 after an ``all_gather`` of the coarse residual (the analogue of the
 reference's repartition-to-main LU, src/p_sparse_matrix.jl:2561-2593,
 without leaving the device).
@@ -40,7 +40,7 @@ from ..psparse import (
     spmtv,
     to_global_scipy,
 )
-from ..pvector import PVector, pdot, pnorm
+from ..pvector import PVector, pdot, pnorm, vdot
 from .smoothers import GaussSeidel, _register_identity_pytree
 
 
@@ -466,7 +466,7 @@ def _spectral_radius_device(A: PSparseMatrix, dinv_parts, iters: int = 20) -> fl
         def f(xo, dinv, cplan, oo, oh):
             def body(i, carry):
                 xv, _ = carry
-                nx = jnp.sqrt(jax.lax.psum(jnp.vdot(xv, xv), AXIS))
+                nx = jnp.sqrt(jax.lax.psum(vdot(xv, xv), AXIS))
                 xv = xv / jnp.maximum(nx, 1e-30)
                 if has_cg:
                     g = cplan.apply(xv, jnp.zeros((ngp,), xv.dtype), "set")
@@ -474,7 +474,7 @@ def _spectral_radius_device(A: PSparseMatrix, dinv_parts, iters: int = 20) -> fl
                 else:
                     y = oo.spmv(xv)
                 y = dinv * y
-                ny = jnp.sqrt(jax.lax.psum(jnp.vdot(y, y), AXIS))
+                ny = jnp.sqrt(jax.lax.psum(vdot(y, y), AXIS))
                 return (y, ny)
 
             _, lam = jax.lax.fori_loop(
@@ -667,6 +667,38 @@ class _GalerkinCache:
 # hierarchy
 # ---------------------------------------------------------------------------
 
+def _sum3(a, axis: int):
+    """Sum over a length-3 axis in a fixed order, (a0 + a1) + a2."""
+    t = [jax.lax.index_in_dim(a, i, axis, keepdims=False) for i in range(3)]
+    return (t[0] + t[1]) + t[2]
+
+
+def box_pool3(v, shapes):
+    """3x3x3 sum-pool of C-ordered (fx, fy, fz) boxes v[P, >= fx*fy*fz]
+    onto (cx, cy, cz) = ceil(f/3) boxes: P0^T of box aggregation.  Sums
+    over x, then y, then z; the ragged last block is zero-padded."""
+    (fx, fy, fz), (cx, cy, cz) = shapes
+    P = v.shape[0]
+    f = v[:, : fx * fy * fz].reshape(P, fx, fy, fz)
+    f = jnp.pad(f, ((0, 0), (0, 3 * cx - fx), (0, 3 * cy - fy), (0, 3 * cz - fz)))
+    f = _sum3(f.reshape(P, cx, 3, 3 * cy, 3 * cz), 2)
+    f = _sum3(f.reshape(P, cx, cy, 3, 3 * cz), 3)
+    f = _sum3(f.reshape(P, cx, cy, cz, 3), 4)
+    return f.reshape(P, -1)
+
+
+def box_up3(c, shapes):
+    """Inverse of box_pool3's aggregation (P0): every fine point takes its
+    aggregate's coarse value."""
+    (fx, fy, fz), (cx, cy, cz) = shapes
+    P = c.shape[0]
+    f = c[:, : cx * cy * cz].reshape(P, cx, cy, cz)
+    f = jnp.repeat(f, 3, axis=1)[:, :fx]
+    f = jnp.repeat(f, 3, axis=2)[:, :, :fy]
+    f = jnp.repeat(f, 3, axis=3)[:, :, :, :fz]
+    return f.reshape(P, -1)
+
+
 @dataclass
 class AMGLevel:
     A: PSparseMatrix
@@ -675,7 +707,7 @@ class AMGLevel:
     # structured-transfer data for box-aggregated stencil levels:
     # (fine_shape, coarse_shape, omega, dinv_device) — lets the cycle apply
     # P = (I - omega D^-1 A) P0 as upsample/pool + one DIA SpMV (no
-    # gathers) instead of the materialized ELL P (gather-bound on TPU)
+    # gathers) instead of the materialized ELL P
     struct: Optional[tuple] = None
 
 
@@ -778,19 +810,11 @@ class AMGPreconditioner:
                 dinv = stack_parts(
                     _dinv_parts(current), pad_to=lay.n_own_pad, fill=0.0
                 )
-                # z-axis (lane-dim) 3:1 pooling as a selection matmul: a
-                # strided lane slice / lane-repeat forces a full relayout
-                # on TPU, the (fz, cz) selection matmul rides the MXU for
-                # free.  The ragged last block is folded into the matrix.
-                fz, cz = struct_shapes[0][2], struct_shapes[1][2]
-                zsel = np.zeros((fz, cz), dtype=np.dtype(current.dtype))
-                zsel[np.arange(fz), np.arange(fz) // 3] = 1.0
                 struct = (
                     struct_shapes[0],
                     struct_shapes[1],
                     omega_used,
                     current.backend.shard(jnp.asarray(dinv, dtype=current.dtype)),
-                    jnp.asarray(zsel),
                 )
             if params.smoother == "schwarz":
                 from .smoothers import AdditiveSchwarz
@@ -818,9 +842,8 @@ class AMGPreconditioner:
         #
         # Gate (round-2 VERDICT item #5 + advisor note): for n <= 512 AND a
         # benign LU growth factor, apply via an explicit inverse derived
-        # from the factors — one replicated MXU matmul per cycle, measured
-        # 0.09 ms cheaper than the two sequential triangular solves of a
-        # device lu_solve at coarse_size 200.  Above 512 dofs (elasticity
+        # from the factors — one replicated matrix-vector product per cycle
+        # instead of two sequential triangular solves.  Above 512 dofs (elasticity
         # nullspace runs reach multi-k coarse spaces) or when the pivot
         # growth suggests ill-conditioning (inverse apply error grows as
         # cond(G)*eps), keep the backward-stable LU apply.  A numerically
@@ -933,7 +956,6 @@ class AMGPreconditioner:
                     current.backend.shard(
                         jnp.asarray(dinv, dtype=current.dtype)
                     ),
-                    lev.struct[4],
                 )
             current = Ac
         self.levels[-1].A = current
@@ -962,7 +984,7 @@ class AMGPreconditioner:
                     flat = jnp.zeros((n,), full.dtype).at[allg.reshape(-1)].set(
                         full.reshape(-1), mode="drop"
                     )
-                    z = M @ flat
+                    z = jnp.matmul(M, flat, precision=jax.lax.Precision.HIGHEST)
                     return jnp.take(z, gids, mode="fill", fill_value=0)
             else:
                 def f(bo, gids, M, piv):
@@ -989,41 +1011,13 @@ class AMGPreconditioner:
         return PVector(own, jnp.zeros_like(b.ghost), lay, b.backend)
 
     # -- structured transfers (box-aggregated stencil levels) ----------
-    # 3^3 sum-pool / upsample of a C-ordered (fx, fy, fz) box.  The two
-    # major axes use zero-pad + reshape-sum (restrict) and broadcast +
-    # reshape (prolong) — contiguous slab traffic; the minor (lane) axis
-    # goes through the zsel selection matmul (MXU) because any lane-dim
-    # pad/stride/repeat costs a full-array relayout on TPU (~2ms of the
-    # measured 2.4ms restrict at 128^3 before this layout).
-    @staticmethod
-    def _box_pool3(v, shapes, zsel):
-        (fx, fy, fz), (cx, cy, cz) = shapes
-        P = v.shape[0]
-        f3 = v[:, : fx * fy * fz].reshape(P, fx, fy, fz)
-        f3 = jnp.pad(f3, ((0, 0), (0, 3 * cx - fx), (0, 3 * cy - fy), (0, 0)))
-        f3 = f3.reshape(P, cx, 3, 3 * cy, fz).sum(2)
-        f3 = f3.reshape(P, cx, cy, 3, fz).sum(3)
-        return jnp.einsum("pxyz,zw->pxyw", f3, zsel.astype(v.dtype)).reshape(P, -1)
-
-    @staticmethod
-    def _box_up3(c_own, shapes, zsel):
-        (fx, fy, fz), (cx, cy, cz) = shapes
-        P = c_own.shape[0]
-        c3 = c_own[:, : cx * cy * cz].reshape(P, cx, cy, cz)
-        f = jnp.einsum("pxyw,zw->pxyz", c3, zsel.astype(c_own.dtype))
-        f = jnp.broadcast_to(
-            f[:, :, :, None, :], (P, cx, cy, 3, fz)
-        ).reshape(P, cx, 3 * cy, fz)[:, :, :fy]
-        f = jnp.broadcast_to(
-            f[:, :, None, :, :], (P, cx, 3, fy, fz)
-        ).reshape(P, 3 * cx, fy, fz)[:, :fx]
-        return f.reshape(P, -1)
-
+    # 3^3 sum-pool / upsample of a C-ordered (fx, fy, fz) box: see
+    # box_pool3 / box_up3 (exact: pads, reshapes and sums of three).
     def _restrict_struct(self, level: AMGLevel, r: PVector, cl) -> PVector:
         """rc = P^T r = P0^T (r - omega A D^-1 r): one DIA SpMV + a 3^d box
         sum-pool — no gathers."""
         shapes = level.struct[:2]
-        omega, dinv, zsel = level.struct[2:]
+        omega, dinv = level.struct[2:]
         A = level.A
         clay = A.col_layout()
         t = PVector(
@@ -1035,7 +1029,7 @@ class AMGPreconditioner:
         u = spmv(A, t)
         v = r.own - omega * u.own
         P = v.shape[0]
-        rc_own = _pad2(self._box_pool3(v, shapes, zsel), cl.n_own_pad)
+        rc_own = _pad2(box_pool3(v, shapes), cl.n_own_pad)
         return PVector(
             rc_own,
             jnp.zeros((P, cl.n_ghost_pad), rc_own.dtype),
@@ -1047,10 +1041,10 @@ class AMGPreconditioner:
         """e = P ec = w - omega D^-1 A w with w = P0 ec (3^d upsample):
         one DIA SpMV — no gathers.  Returns the own values of e."""
         shapes = level.struct[:2]
-        omega, dinv, zsel = level.struct[2:]
+        omega, dinv = level.struct[2:]
         A = level.A
         lay = A.row_layout()
-        w_own = _pad2(self._box_up3(ec.own, shapes, zsel), lay.n_own_pad)
+        w_own = _pad2(box_up3(ec.own, shapes), lay.n_own_pad)
         clay = A.col_layout()
         wv = PVector(
             w_own,
@@ -1125,12 +1119,12 @@ class AMGPreconditioner:
         """rc = P0^T (r - omega A D^-1 r) from the core-form residual rd
         (P, m, Lq): elementwise D^-1, fused core A-apply, ONE interleave,
         3^d box sum-pool."""
-        shapes, (omega, _, zsel) = level.struct[:2], level.struct[2:]
+        shapes, omega = level.struct[:2], level.struct[2]
         gs = level.smoother
         u = gs.flat_ax(rd * gs.colored.invd_d.astype(rd.dtype))
         v_std = gs.flat_interleave_core(rd - omega * u)
         P = v_std.shape[0]
-        rc_own = _pad2(self._box_pool3(v_std, shapes, zsel), cl.n_own_pad)
+        rc_own = _pad2(box_pool3(v_std, shapes), cl.n_own_pad)
         return PVector(
             rc_own,
             jnp.zeros((P, cl.n_ghost_pad), rc_own.dtype),
@@ -1141,11 +1135,9 @@ class AMGPreconditioner:
     def _prolong_flat(self, level: AMGLevel, ec: PVector):
         """e = w - omega D^-1 A w with w = P0 ec (3^d upsample), returned
         in CORE form: ONE deinterleave + the fused core A-apply."""
-        shapes, (omega, _, zsel) = level.struct[:2], level.struct[2:]
+        shapes, omega = level.struct[:2], level.struct[2]
         gs = level.smoother
-        w_std = _pad2(
-            self._box_up3(ec.own, shapes, zsel), level.A.row_layout().n_own_pad
-        )
+        w_std = _pad2(box_up3(ec.own, shapes), level.A.row_layout().n_own_pad)
         w_core = gs.flat_deinterleave(w_std)
         u = gs.flat_ax(w_core)
         return w_core - omega * (gs.colored.invd_d.astype(u.dtype) * u)

@@ -1,5 +1,5 @@
-"""Speed-of-light Gauss-Seidel for DIA (banded) blocks: mod-m coloring with
-a de-interleaved unknown vector.
+"""Gauss-Seidel for DIA (banded) blocks: mod-m coloring with a
+de-interleaved unknown vector.
 
 Classic multicolor GS on a vector machine costs n_colors full SpMV-like
 passes per sweep.  For a banded own_own block (diagonal offsets O) we do a
@@ -11,11 +11,13 @@ TRUE Gauss-Seidel sweep at one-SpMV data volume using contiguous ops only:
 2. De-interleave x into rows xd[s, i'] = x[m*i' + s]: a stride-m sample of
    a shifted sequence is a *shifted contiguous row* of xd, so every
    diagonal's contribution to the color-c rows is a contiguous slice.
-3. Lay the rows out in one flat buffer (with zero inter-row pads): the
-   color-c update becomes literally a DIA SpMV with static absolute
-   offsets into that buffer — so it reuses the roofline Pallas stencil
-   kernel (ops/spmv_pallas.py).  Per sweep: m such updates, total data
-   volume = one pass over the diagonal values.
+3. Lay the rows out in one flat buffer (with zero margins at both ends):
+   the color-c update becomes literally a DIA SpMV with static absolute
+   offsets into that buffer (ops/dia.py).  Per sweep: m such updates,
+   total data volume = one pass over the diagonal values.
+
+The de-interleave and interleave are a reshape and a transpose: exact
+permutations, no arithmetic.
 
 Ghost-column contributions are frozen per sweep (hybrid processor-block
 GS, identical to the reference's semantics at
@@ -59,31 +61,24 @@ class ColoredDIAGS:
         assert m is not None
         self.m = m
         self.R = R
-        L = -(-R // m)
-        # pad the row core so the Pallas color-update kernel gets large
-        # tiles (grid tile must divide Lq; see spmv_pallas._pick_tile)
-        tile = 16384 if L > 32768 else 1024
-        self.Lq = _round_up(max(L, 1), tile)
+        self.Lq = max(-(-R // m), 1)  # row length of the (m, Lq) core
         # max |de-interleaved row shift|
-        K = max((abs((c + o) // m) + 1 for o in self.offsets for c in range(m)), default=1)
-        self.Kp = _round_up(K, 1024)
-        # CONTIGUOUS core layout: rows have NO per-row margins (Lp == Lq);
-        # the flat buffer is [Kp zeros | row0..row_{m-1} back to back | tail
+        self.Kp = max(
+            (abs((c + o) // m) + 1 for o in self.offsets for c in range(m)),
+            default=1,
+        )
+        # CONTIGUOUS core layout: rows have NO per-row margins; the flat
+        # buffer is [Kp zeros | row0..row_{m-1} back to back | Kp
         # zeros].  Safe because any tap that strays outside its target
         # row's core multiplies a PROVABLY ZERO diagonal value (a valid
         # entry A[j, j+o] has j+o in [0, R), which lands inside the target
-        # core by construction) — only memory-safety margins are needed at
-        # the two buffer ends.  This makes to_flat a pure copy and
-        # from_flat a single aligned slice (the old per-row-margin layout
-        # cost ~0.8 ms per transform at HPCG 128^3 in strided relayouts).
-        self.Lp = self.Lq  # row stride == row length
-        # tail: Kp covers positive shifts, +1024 covers the fused kernel's
-        # aligned-window overread (gs_pallas reads [q, q+T+ALIGN))
-        self.n_flat = self.Kp + m * self.Lq + self.Kp + 1024
+        # core by construction) — only margins at the two buffer ends are
+        # needed.  to_flat is then a pure copy and core_of_flat one slice.
+        self.n_flat = self.Kp + m * self.Lq + self.Kp
         # static ABSOLUTE offsets per color: the color-c update computes
         # ax[i] = sum_d vals_c[d, i] * xflat[offs_d + i] with
-        # offs_d = s_d*Lp + Kp + k_d >= 0 — literally a DIA SpMV into the
-        # flat buffer, reusing the roofline Pallas stencil kernel.
+        # offs_d = s_d*Lq + Kp + k_d >= 0 — literally a DIA SpMV into the
+        # flat buffer.
         self.schedule = []
         for c in range(m):
             offs = []
@@ -91,47 +86,8 @@ class ColoredDIAGS:
                 j = c + o
                 s = j % m
                 k = (j - s) // m
-                offs.append(s * self.Lp + self.Kp + k)
+                offs.append(s * self.Lq + self.Kp + k)
             self.schedule.append(tuple(offs))
-        self.max_abs_off = max(max(s) for s in self.schedule)
-        # lane-permutation matrix for the MXU-based de/interleave: within
-        # each block of m*128 contiguous elements, out[s*128 + j] =
-        # in[m*j + s].  A direct (Lq, m) <-> (m, Lq) transpose tiles the
-        # size-m minor dim at m/128 lane utilization (~1 ms per transform
-        # at 2M rows); the block matmul rides the MXU and the remaining
-        # (B, m, 128) <-> (m, B, 128) transpose keeps the 128-lane minor
-        # dim intact (a cheap major-dim copy).
-        mw = m * 128
-        j = np.arange(128)
-        sel = np.zeros((mw, mw), dtype=np.float32)
-        for s in range(m):
-            sel[m * j + s, s * 128 + j] = 1.0
-        self._sel = sel
-
-    def _set_vals_layout(self, values_dtype) -> None:
-        """Decide the diagonal-value storage layout.  On Pallas targets the
-        values live in the 1-D SEGMENT-MAJOR order (color c, segment j) ->
-        n_off*T contiguous elements: the streamed kernel blocks are then
-        contiguous 1-D runs, where a (n_off, T) 2-D block would tile the
-        n_off sublane dim up to the next multiple of 8 and move up to
-        8/n_off extra HBM traffic (18.5% at the HPCG 27-pt level — measured
-        582 -> 690 GB/s physical on the sweep stream)."""
-        from .. import config
-        from ..ops.gs_pallas import _pick_tile
-
-        itemsize = np.dtype(values_dtype).itemsize
-        self.T = _pick_tile(self.Lq, len(self.offsets), itemsize)
-        self.flat_vals = bool(config.pallas_enabled() and self.T)
-
-    def vals_color(self, vals_d, c: int):
-        """Per-color (n_off, Lq) view of the stored diagonal values (for
-        the per-color XLA/Pallas fallback paths)."""
-        n_off = len(self.offsets)
-        if not self.flat_vals:
-            return vals_d[c]
-        nseg = self.Lq // self.T
-        v = vals_d.reshape(self.m, nseg, n_off, self.T)[c]
-        return jnp.moveaxis(v, 0, 1).reshape(n_off, self.Lq)
 
     def __init__(
         self,
@@ -143,19 +99,11 @@ class ColoredDIAGS:
         P, n_off, R = vals.shape
         self._plan(offsets, R)
         m, Lq = self.m, self.Lq
-        self._set_vals_layout(
-            values_dtype if values_dtype is not None else vals.dtype
-        )
         # de-interleave diagonal values: vals_d[P, m, n_off, Lq]
         Rq = m * Lq
         vp = np.zeros((P, n_off, Rq), dtype=vals.dtype)
         vp[:, :, :R] = vals
         vals_d = vp.reshape(P, n_off, Lq, m).transpose(0, 3, 1, 2)
-        if self.flat_vals:
-            nseg = Lq // self.T
-            vals_d = vals_d.reshape(P, m, n_off, nseg, self.T).transpose(
-                0, 1, 3, 2, 4
-            ).reshape(P, -1)
         self.vals_d = jnp.asarray(
             np.ascontiguousarray(vals_d),
             dtype=values_dtype if values_dtype is not None else vals_d.dtype,
@@ -186,9 +134,6 @@ class ColoredDIAGS:
         P, n_off, R = (int(s) for s in vals_dev.shape)
         self._plan(offsets, R)
         m, Lq = self.m, self.Lq
-        self._set_vals_layout(
-            values_dtype if values_dtype is not None else vals_dev.dtype
-        )
         Rq = m * Lq
 
         @jax.jit
@@ -197,11 +142,6 @@ class ColoredDIAGS:
             vals_d = vp.reshape(P, n_off, Lq, m).transpose(0, 3, 1, 2)
             if values_dtype is not None:
                 vals_d = vals_d.astype(values_dtype)
-            if self.flat_vals:
-                nseg = Lq // self.T
-                vals_d = vals_d.reshape(P, m, n_off, nseg, self.T).transpose(
-                    0, 1, 3, 2, 4
-                ).reshape(P, -1)
             dp = jnp.zeros((P, Rq), diag.dtype).at[:, :R].set(diag)
             dd = dp.reshape(P, Lq, m).transpose(0, 2, 1)
             inv = jnp.where(dd != 0, 1.0 / jnp.where(dd != 0, dd, 1.0), 0.0)
@@ -212,32 +152,29 @@ class ColoredDIAGS:
 
     # -- de/interleave (per-part, traceable) --------------------------
     def deinterleave(self, x: jnp.ndarray) -> jnp.ndarray:
-        """x[R-padded own values] -> xd[m, Lq] (no inter-row pads)."""
+        """x[R-padded own values] -> xd[m, Lq] with xd[s, i] = x[m*i + s]
+        (zero beyond R)."""
         m, Lq = self.m, self.Lq
-        Rq = m * Lq
-        xp = jnp.zeros((Rq,), x.dtype).at[: self.R].set(x[: self.R])
-        B = Lq // 128
-        sel = jnp.asarray(self._sel, dtype=x.dtype)
-        Y = xp.reshape(B, m * 128) @ sel
-        return Y.reshape(B, m, 128).transpose(1, 0, 2).reshape(m, Lq)
+        xp = jnp.zeros((m * Lq,), x.dtype).at[: self.R].set(x[: self.R])
+        return xp.reshape(Lq, m).T
 
     def to_flat(self, xd: jnp.ndarray) -> jnp.ndarray:
         """xd[m, Lq] -> flat buffer [n_flat]: pure contiguous copy between
         the two end margins."""
-        m, Lq, Kp = self.m, self.Lq, self.Kp
-        tail = self.n_flat - Kp - m * Lq
-        return jnp.concatenate(
-            [
-                jnp.zeros((Kp,), xd.dtype),
-                xd.reshape(-1),
-                jnp.zeros((tail,), xd.dtype),
-            ]
-        )
-
-    def from_flat(self, xflat: jnp.ndarray) -> jnp.ndarray:
-        return self.interleave_core(self.core_of_flat(xflat))
+        z = jnp.zeros((self.Kp,), xd.dtype)
+        return jnp.concatenate([z, xd.reshape(-1), z])
 
     # -- the sweep -----------------------------------------------------
+    def _color_ax(self, xflat, vals_c, offs):
+        """sum_d vals_c[d, i] * xflat[offs[d] + i] for one color: ``offs``
+        are the color's absolute schedule offsets as a traced int32 row,
+        all in [0, n_flat - Lq] by construction (see _plan)."""
+        ax = jnp.zeros((self.Lq,), vals_c.dtype)
+        for d in range(len(self.offsets)):
+            seg = jax.lax.dynamic_slice(xflat, (offs[d],), (self.Lq,))
+            ax = ax + vals_c[d] * seg
+        return ax
+
     def sweep_flat(
         self,
         xflat: jnp.ndarray,
@@ -246,32 +183,30 @@ class ColoredDIAGS:
         invd_d: jnp.ndarray,
         order,
     ) -> jnp.ndarray:
-        """One GS sweep over colors in ``order``, entirely in the flat
-        de-interleaved space.  bd [m, Lq] = de-interleaved
-        (b - own_ghost @ x_ghost), frozen for the whole smoother
-        application (reference semantics: consistent! once per smooth,
-        smoothers.jl:104-105)."""
-        from .. import config
-        from ..ops.dia import dia_spmv
-        from ..ops.spmv_pallas import dia_spmv_pallas, dia_spmv_pallas_viable
+        """GS color updates in ``order``, entirely in the flat
+        de-interleaved space: one ``lax.fori_loop`` step per color, so the
+        compiled program does not grow with the number of colors.  bd
+        [m, Lq] = de-interleaved (b - own_ghost @ x_ghost), frozen for the
+        whole smoother application (reference semantics: consistent! once
+        per smooth, smoothers.jl:104-105)."""
+        order = jnp.asarray(np.asarray(order, np.int32))
+        table = jnp.asarray(np.asarray(self.schedule, np.int32))
+        Kp, Lq = self.Kp, self.Lq
 
-        m, Lq, Kp, Lp = self.m, self.Lq, self.Kp, self.Lp
-        n_flat = xflat.shape[0]
-        use_pallas = config.pallas_enabled() and dia_spmv_pallas_viable(
-            (0, self.max_abs_off), Lq, n_flat, xflat.dtype.itemsize
-        )
-        for c in order:
-            offs = self.schedule[c]
-            vc = self.vals_color(vals_d, c)
-            if use_pallas:
-                ax = dia_spmv_pallas(offs, vc, xflat, n_flat)
-            else:
-                ax = dia_spmv(offs, vc, xflat, n_flat)
-            start = c * Lp + Kp
+        def update(i, xflat):
+            c = order[i]
+            # the barrier keeps the per-diagonal products in one fusion
+            # that writes only ax; without it XLA materializes every term
+            # for the in-place row update (a 1.55x slower sweep, PERF.md)
+            ax = jax.lax.optimization_barrier(
+                self._color_ax(xflat, vals_d[c], table[c])
+            )
+            start = c * Lq + Kp
             xrow = jax.lax.dynamic_slice(xflat, (start,), (Lq,))
             xnew = xrow + (bd[c] - ax) * invd_d[c]
-            xflat = jax.lax.dynamic_update_slice(xflat, xnew, (start,))
-        return xflat
+            return jax.lax.dynamic_update_slice(xflat, xnew, (start,))
+
+        return jax.lax.fori_loop(0, order.shape[0], update, xflat)
 
     # -- core API (the preferred form: no padded buffers outside kernels) --
     def zeros_core(self, dtype) -> jnp.ndarray:
@@ -284,84 +219,26 @@ class ColoredDIAGS:
 
     def interleave_core(self, xcore: jnp.ndarray) -> jnp.ndarray:
         """(m, Lq) core -> standard own order [R]."""
-        m, Lq = self.m, self.Lq
-        B = Lq // 128
-        sel = jnp.asarray(self._sel, dtype=xcore.dtype)
-        Y = xcore.reshape(m, B, 128).transpose(1, 0, 2).reshape(B, m * 128)
-        return (Y @ sel.T).reshape(m * Lq)[: self.R]
+        return xcore.T.reshape(-1)[: self.R]
 
     def ax_core(self, xcore: jnp.ndarray, vals_d: jnp.ndarray) -> jnp.ndarray:
         """A_own_own @ x in the de-interleaved layout, core-in core-out
-        (one fused Pallas launch; one pass over the diagonal values)."""
-        from .. import config
-        from ..ops.dia import dia_spmv
-        from ..ops.gs_pallas import ax_core_pallas, ax_flat_pallas_viable
-
-        if (
-            self.flat_vals
-            and config.pallas_enabled()
-            and ax_flat_pallas_viable(
-                self.n_flat, self.Lq, len(self.offsets), xcore.dtype.itemsize
-            )
-        ):
-            return ax_core_pallas(
-                vals_d, xcore, schedule=tuple(self.schedule),
-                Kp=self.Kp, n_flat=self.n_flat,
-                m=self.m, n_off=len(self.offsets), T=self.T,
-            )
+        (one pass over the diagonal values; one loop step per color)."""
         xflat = self.to_flat(xcore)
-        rows = [
-            dia_spmv(
-                self.schedule[c], self.vals_color(vals_d, c), xflat, self.n_flat
-            )
-            for c in range(self.m)
-        ]
-        return jnp.stack(rows)
+        table = jnp.asarray(np.asarray(self.schedule, np.int32))
+        return jax.lax.map(
+            lambda c: self._color_ax(xflat, vals_d[c], table[c]),
+            jnp.arange(self.m),
+        )
 
     def sweeps_core(
         self, xcore, bd, vals_d, invd_d, order_seq, dtype=None
     ) -> jnp.ndarray:
         """Run a whole color sequence on the (m, Lq) core (``xcore=None``
-        means zero initial guess).  Fused single-launch Pallas kernel when
-        viable, else the per-color XLA composition on a padded buffer."""
-        from .. import config
-        from ..ops.gs_pallas import gs_sweep_pallas, gs_sweep_pallas_viable
-
+        means zero initial guess): the per-color composition on the
+        padded flat buffer."""
         order_seq = tuple(int(c) for c in order_seq)
         if xcore is None:
             xcore = self.zeros_core(dtype if dtype is not None else bd.dtype)
-        if (
-            self.flat_vals
-            and config.pallas_enabled()
-            and gs_sweep_pallas_viable(
-                self.n_flat, self.Lq, len(self.offsets), xcore.dtype.itemsize
-            )
-        ):
-            return gs_sweep_pallas(
-                vals_d, bd, invd_d, xcore,
-                schedule=tuple(self.schedule), order=order_seq,
-                Lp=self.Lp, Kp=self.Kp, n_flat=self.n_flat,
-                m=self.m, n_off=len(self.offsets), T=self.T,
-            )
-        xflat = self.to_flat(xcore)
-        m = self.m
-        for s in range(0, len(order_seq), m):
-            xflat = self.sweep_flat(
-                xflat, bd, vals_d, invd_d, order_seq[s : s + m]
-            )
+        xflat = self.sweep_flat(self.to_flat(xcore), bd, vals_d, invd_d, order_seq)
         return self.core_of_flat(xflat)
-
-    def sweep(
-        self,
-        xo: jnp.ndarray,
-        bo: jnp.ndarray,
-        ghost_contrib: jnp.ndarray,
-        vals_d: jnp.ndarray,
-        invd_d: jnp.ndarray,
-        order,
-    ) -> jnp.ndarray:
-        """Single standalone sweep (converts to/from flat space)."""
-        xflat = self.to_flat(self.deinterleave(xo))
-        bd = self.deinterleave(bo - ghost_contrib)
-        xflat = self.sweep_flat(xflat, bd, vals_d, invd_d, order)
-        return self.from_flat(xflat)

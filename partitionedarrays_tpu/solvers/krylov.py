@@ -2,7 +2,7 @@
 
 Capability parity: the reference wraps IterativeSolvers.cg
 (PartitionedSolvers/src/wrappers.jl:18-29) and uses preconditioned CG
-throughout (HPCG/src/ref_cg.jl).  TPU-native design: the whole iteration is
+throughout (HPCG/src/ref_cg.jl).  Device design: the whole iteration is
 jit-compatible — state is a pytree of stacked part arrays, the loop is
 ``lax.while_loop``, reductions are ``psum`` over the parts axis — so the
 full solve compiles to one XLA program with fused SpMV + collectives.

@@ -1,7 +1,7 @@
 """Checkpoint / resume for partitioned containers.
 
 The reference serializes nothing (SURVEY §5: checkpoint/resume absent);
-this module is the TPU-native bonus: PVector and PSparseMatrix round-trip
+this module is an addition: PVector and PSparseMatrix round-trip
 through a single ``.npz`` (values + partition metadata), so long solver
 runs can snapshot state and restart on a possibly different backend.
 """

@@ -1,8 +1,8 @@
 """Profiling / tracing helpers.
 
 The reference's observability layer is PTimer plus "gather per-rank
-timings" (src/p_timer.jl; docs/src/usage.md Benchmarking).  On TPU the
-meaningful tool is the XLA profiler: these helpers wrap ``jax.profiler``
+timings" (src/p_timer.jl; docs/src/usage.md Benchmarking).  On a device
+the meaningful tool is the XLA profiler: these helpers wrap ``jax.profiler``
 so users can capture device traces of solver runs and annotate phases.
 """
 from __future__ import annotations

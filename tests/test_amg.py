@@ -103,7 +103,7 @@ def test_amg_structured_box_aggregation(backend4):
     x_exact, b = manufactured(A, backend4)
     M = amg(A, AMGParams(coarse_size=10))
     assert M.levels[0].struct is not None
-    (fsh, csh, omega, dinv, zsel) = M.levels[0].struct
+    (fsh, csh, omega, dinv) = M.levels[0].struct
     assert fsh == (1, 9, 9) or fsh == (9, 9, 1) or fsh == (9, 9)
     x, info = cg(A, b, M=M, rtol=1e-10, maxiter=100)
     assert np.linalg.norm(collect(x) - x_exact) < 1e-5

@@ -234,7 +234,7 @@ def test_cg_df64_generic_fdm_f64_tolerance(backend4):
     b_glob = G @ x_exact
     b_parts = [b_glob[li.own_to_global] for li in A.row_prange.partition()]
     b = pvector_df64(b_parts, A.row_prange, backend4)
-    # the preconditioner is f32 (the TPU-real configuration): built from
+    # the preconditioner is f32 (the production configuration): built from
     # an f32 copy of the operator
     M = amg(A.astype(np.float32), AMGParams(coarse_size=20))
     x_pair, info = cg_df64(A, b, M=M, rtol=1e-10, maxiter=200)

@@ -159,84 +159,3 @@ def test_sub_sparse_matrix_and_split():
     np.testing.assert_allclose(hh.toarray(), D[np.ix_(gho_r, gho_c)])
     # the four blocks partition the nonzeros
     assert oo.nnz + oh.nnz + ho.nnz + hh.nnz == A.nnz
-
-
-# -- Pallas streaming layouts (layout math is device-independent) --------
-
-
-def test_colored_dia_flat_vals_layout_roundtrip():
-    """The segment-major flat storage of the GS sweep values must
-    reconstruct the logical per-color (n_off, Lq) diagonals exactly, and
-    the MXU de/interleave must be an exact permutation round-trip."""
-    import jax.numpy as jnp
-
-    from partitionedarrays_tpu import config
-    from partitionedarrays_tpu.solvers.gs_dia import ColoredDIAGS
-
-    rng = np.random.default_rng(0)
-    offsets = (0, 1, -1, 40, -40, 1600, -1600)
-    R = 6000
-    vals = rng.standard_normal((2, len(offsets), R)).astype(np.float32)
-    k0 = offsets.index(0)
-    diag = vals[:, k0, :] + 9.0
-    vals[:, k0, :] = diag
-    old = config.use_pallas
-    try:
-        config.use_pallas = False
-        ref = ColoredDIAGS(offsets, vals, diag)
-        assert not ref.flat_vals
-        config.use_pallas = True
-        flat = ColoredDIAGS(offsets, vals, diag)
-        assert flat.flat_vals and flat.T > 0
-    finally:
-        config.use_pallas = old
-    assert flat.m == ref.m
-    for p in range(2):
-        for c in range(flat.m):
-            np.testing.assert_array_equal(
-                np.asarray(flat.vals_color(flat.vals_d[p], c)),
-                np.asarray(ref.vals_d[p][c]),
-            )
-    # de/interleave round-trip (exact: 0/1 selection matmul)
-    x = rng.standard_normal(R).astype(np.float32)
-    xd = ref.deinterleave(jnp.asarray(x))
-    Rq = ref.m * ref.Lq
-    xp = np.zeros(Rq, np.float32)
-    xp[:R] = x
-    np.testing.assert_array_equal(np.asarray(xd), xp.reshape(ref.Lq, ref.m).T)
-    np.testing.assert_array_equal(np.asarray(ref.interleave_core(xd)), x)
-
-
-def test_make_dia_block_vflat_layout():
-    """DeviceBlock's vflat copy must hold segment (j) -> n_off*T contiguous
-    values matching the logical [P, n_off, R] storage."""
-    import jax.numpy as jnp
-
-    from partitionedarrays_tpu import config
-    from partitionedarrays_tpu.ops.blocks import make_dia_block
-
-    rng = np.random.default_rng(1)
-    offsets = (-64, -1, 0, 1, 64)
-    R = 8192
-    vals = jnp.asarray(rng.standard_normal((2, len(offsets), R)), jnp.float32)
-    old = config.use_pallas
-    try:
-        config.use_pallas = True
-        blk = make_dia_block(offsets, R, vals)
-    finally:
-        config.use_pallas = old
-    assert blk.vflat is not None and blk.T > 0
-    T = blk.T
-    nseg = R // T
-    recon = (
-        np.asarray(blk.vflat)
-        .reshape(2, nseg, len(offsets), T)
-        .transpose(0, 2, 1, 3)
-        .reshape(2, len(offsets), R)
-    )
-    np.testing.assert_array_equal(recon, np.asarray(vals))
-    # astype keeps the flat copy consistent
-    b16 = blk.astype(jnp.bfloat16)
-    assert b16.vals.dtype == jnp.bfloat16
-    if b16.vflat is not None:
-        assert b16.vflat.dtype == jnp.bfloat16

@@ -6,12 +6,12 @@ exchange, compute own_own x own concurrently, wait, add the ghost
 contribution — maps here to a DATAFLOW property of the compiled XLA
 program: the own_own product must not depend on any collective, and must
 reach the root without passing through one.  When that holds, XLA's
-async-collective pass on TPU is free to schedule
+async-collective pass on the GPU is free to schedule
 ``collective-permute-start`` before the own_own fusion and ``-done``
 after it (the round-2 quiet-machine measurement showed it does); if a
 code change ever introduces a false dependency (e.g. a fusion that folds
 the exchange into the own-block product's input), this test catches it
-without TPU-pod hardware.
+without multi-device hardware.
 
 CPU lowers ppermute to SYNCHRONOUS ``collective-permute`` (no
 start/done pair), so the assertion is on the optimized HLO's dependency

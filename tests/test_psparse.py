@@ -469,25 +469,19 @@ def test_psparse_local_matches_generic(backend4):
     for p, li in enumerate(A.row_prange.partition()):
         got = np.asarray(y.own)[p, : li.n_own]
         assert np.abs(got - ref[li.own_to_global]).max() < 1e-5
-    # the agreed slot freeze must be numerically exact too (on TPU it IS
-    # the dispatched oo path; on CPU validate through the XLA twin)
-    dev = A.device()
-    if dev.oo.slot is not None:
-        from partitionedarrays_tpu.ops.slot_spmv import slot_spmv_ref
+    # the agreed own_own freeze alone must be numerically exact too
+    import jax
 
-        s_idx, s_vals, s_srow, s_onehot, s_base = dev.oo.slot
-        clay = A.col_layout()
-        for p, li in enumerate(A.row_prange.partition()):
-            xp = np.zeros(clay.n_own_pad, np.float32)
-            xp[: li.n_own] = 1.0
-            yo = np.asarray(
-                slot_spmv_ref(
-                    s_idx[p], s_vals[p], s_srow[p], s_base[p],
-                    np.ones(clay.n_own_pad, np.float32), dev.oo.slot_meta,
-                )
-            )
-            oo_ref = A.blocks[p]["oo"] @ np.ones(A.blocks[p]["oo"].shape[1])
-            assert np.abs(yo[: li.n_own] - oo_ref).max() < 1e-4
+    dev = A.device()
+    clay = A.col_layout()
+    yo_all = np.asarray(
+        jax.vmap(lambda b, xv: b.spmv(xv), in_axes=(0, None))(
+            dev.oo, np.ones(clay.n_own_pad, np.float32)
+        )
+    )
+    for p, li in enumerate(A.row_prange.partition()):
+        oo_ref = A.blocks[p]["oo"] @ np.ones(A.blocks[p]["oo"].shape[1])
+        assert np.abs(yo_all[p, : li.n_own] - oo_ref).max() < 1e-4
 
 
 def test_local_only_guards_loud(backend4):

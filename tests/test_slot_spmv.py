@@ -1,20 +1,20 @@
-"""Slot-format unstructured SpMV (ops/slot_spmv.py).
+"""Unstructured (non-banded) operators: ELL SpMV and its freeze/refill.
 
-The TPU kernel's math twin (slot_spmv_ref) is validated against scipy and
-against the plain ELL gather on the operators the slot path exists for:
-generic FEM blocks and random locality-ordered sparsity (reference
-counterpart: the general CSR spmv!, src/sparse_utils.jl:649-669)."""
+An ELL block is validated against scipy on the operators the generic path
+exists for: random locality-ordered sparsity (reference counterpart: the
+general CSR spmv!, src/sparse_utils.jl:649-669).  ELL blocks carry only
+their column and value planes (no kernel-specific side layouts).  The
+wave-scheduled tile GS (solvers/gs_slot.py) is validated against exact
+Gauss-Seidel sweeps."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
+import jax
 import jax.numpy as jnp
 
+from partitionedarrays_tpu.ops.blocks import freeze_block
 from partitionedarrays_tpu.ops.ell import stack_ell, ell_spmv
-from partitionedarrays_tpu.ops.slot_spmv import (
-    build_slot_plan,
-    slot_spmv_ref,
-)
 
 
 def _random_banded(n, bw, k, seed):
@@ -36,35 +36,30 @@ def _pad(A, n_rows_pad, n_cols_pad):
     return B
 
 
+def _block_spmv(blk, x):
+    return np.asarray(jax.vmap(lambda b, xv: b.spmv(xv), in_axes=(0, None))(blk, x))
+
+
 @pytest.mark.parametrize(
     "n,bw,k", [(1000, 300, 30), (3000, 1500, 60), (300, 300, 7)]
 )
 def test_slot_matches_scipy_and_ell(n, bw, k):
+    """The frozen ELL block's SpMV against scipy, and against the plain
+    ``ell_spmv`` on the stacked arrays."""
     A = _random_banded(n, bw, k, seed=n)
     n_pad = ((n + 511) // 512) * 512
-    Ap = _pad(A, n_pad, n_pad)
-    plan = build_slot_plan([Ap], n_pad, n_pad)
-    assert plan is not None
-    m = plan.meta
+    Ap = _pad(A, n_pad, n_pad).astype(np.float32)
+    blk = freeze_block([Ap], n_pad, n_pad, prefer_dia=False)
+    assert blk.kind == "ell"
     rng = np.random.default_rng(1)
     x = rng.standard_normal(n_pad).astype(np.float32)
-    y = np.asarray(
-        slot_spmv_ref(
-            jnp.asarray(plan.idx[0]),
-            jnp.asarray(plan.vals[0].astype(np.float32)),
-            jnp.asarray(plan.srow[0]),
-            jnp.asarray(plan.base[0]),
-            jnp.asarray(x),
-            m,
-        )
-    )
-    exp = Ap.astype(np.float32) @ x
-    scale = np.abs(Ap.astype(np.float32)) @ np.abs(x) + 1e-6
-    assert (np.abs(y[: m.n_rows] - exp) / scale).max() < 1e-5
-    # parity with the ELL gather on the same operator
-    cols, vals = stack_ell([Ap.astype(np.float32)], n_pad)
+    y = _block_spmv(blk, jnp.asarray(x))[0]
+    exp = Ap.astype(np.float64) @ x
+    scale = np.abs(Ap) @ np.abs(x) + 1e-6
+    assert (np.abs(y - exp) / scale).max() < 1e-5
+    cols, vals = stack_ell([Ap], n_pad)
     y_ell = np.asarray(ell_spmv(jnp.asarray(cols[0]), jnp.asarray(vals[0]), jnp.asarray(x)))
-    assert (np.abs(y[: m.n_rows] - y_ell[: m.n_rows]) / scale).max() < 1e-5
+    np.testing.assert_array_equal(y, y_ell)
 
 
 def test_slot_multipart_shapes_and_empty():
@@ -72,54 +67,40 @@ def test_slot_multipart_shapes_and_empty():
     A0 = _random_banded(600, 200, 9, seed=0)
     A1 = sp.csr_matrix((600, 600))
     n_pad = 1024
-    plan = build_slot_plan([_pad(A0, n_pad, n_pad), _pad(A1, n_pad, n_pad)], n_pad, n_pad)
-    assert plan is not None
-    assert plan.idx.shape[0] == 2
+    blocks = [_pad(A0, n_pad, n_pad), _pad(A1, n_pad, n_pad)]
+    blk = freeze_block(blocks, n_pad, n_pad, prefer_dia=False)
+    assert blk.kind == "ell" and blk.cols.shape[0] == 2
+    assert blk.cols.shape == blk.vals.shape
     rng = np.random.default_rng(3)
     x = rng.standard_normal(n_pad).astype(np.float32)
-    for p, A in enumerate([A0, A1]):
-        y = np.asarray(
-            slot_spmv_ref(
-                jnp.asarray(plan.idx[p]),
-                jnp.asarray(plan.vals[p].astype(np.float32)),
-                jnp.asarray(plan.srow[p]),
-                jnp.asarray(plan.base[p]),
-                jnp.asarray(x),
-                plan.meta,
-            )
-        )
-        exp = _pad(A, n_pad, n_pad).astype(np.float32) @ x
-        assert np.abs(y - exp).max() < 1e-3
+    y = _block_spmv(blk, jnp.asarray(x))
+    for p, A in enumerate(blocks):
+        exp = A.astype(np.float64) @ x
+        assert np.abs(y[p] - exp).max() < 1e-3
+    assert np.all(y[1] == 0)
 
 
 def test_freeze_block_attaches_slot():
-    from partitionedarrays_tpu.ops.blocks import freeze_block
-
+    """An ELL freeze attaches no slot-format (or any other side) arrays:
+    the block's pytree leaves are exactly its column and value planes, and
+    its SpMV matches scipy."""
     A = _random_banded(700, 250, 12, seed=5).astype(np.float32)
     n_pad = 1024
     blk = freeze_block([_pad(A, n_pad, n_pad)], n_pad, n_pad, prefer_dia=False)
     assert blk.kind == "ell"
-    assert blk.slot is not None and blk.slot_meta is not None
-    # spmv dispatch (pallas off on CPU -> ell path) still correct
+    assert not hasattr(blk, "slot") and not hasattr(blk, "slot_meta")
+    leaves = jax.tree_util.tree_leaves(blk)
+    assert len(leaves) == 2
+    assert blk.nbytes() == blk.cols.size * 4 + blk.vals.size * blk.vals.dtype.itemsize
     rng = np.random.default_rng(4)
     x = jnp.asarray(rng.standard_normal(n_pad).astype(np.float32))
-    import jax
-
-    y = np.asarray(jax.vmap(lambda b, xv: b.spmv(xv), in_axes=(0, None))(blk, x))
+    y = _block_spmv(blk, x)
     exp = _pad(A, n_pad, n_pad) @ np.asarray(x)
     assert np.abs(y[0] - exp).max() < 1e-3
-    # and the slot twin agrees
-    from partitionedarrays_tpu.ops.slot_spmv import slot_spmv_ref
-
-    s_idx, s_vals, s_srow, s_onehot, s_base = blk.slot
-    y2 = np.asarray(
-        slot_spmv_ref(s_idx[0], s_vals[0], s_srow[0], s_base[0], x, blk.slot_meta)
-    )
-    assert np.abs(y2 - exp).max() < 1e-3
 
 
 def test_natural_tile_gs_matches_reference_sweep(backend4):
-    """The slot-engine GS fallback must reproduce an exact NATURAL-ORDER
+    """The tile-engine GS fallback must reproduce an exact NATURAL-ORDER
     Gauss-Seidel sweep (the reference's sequential-within-part order,
     smoothers.jl:82-125) on a generic non-banded operator."""
     import jax.numpy as jnp
@@ -151,7 +132,7 @@ def test_natural_tile_gs_matches_reference_sweep(backend4):
     A = psparse(I, J, Vv, rows, cols, backend4, assembled=True)
     gs = GaussSeidel(A, iterations=1, sweep="forward")
     assert gs.colored is None, "want the generic fallback here"
-    assert gs.slot_gs is not None, "slot planner should accept this operator"
+    assert gs.slot_gs is not None, "tile engine should accept this operator"
 
     b_parts = [rng.standard_normal(sizes[p]).astype(np.float32) for p in range(P)]
     b = pvector_from_own(b_parts, A.row_prange, backend4)
@@ -261,17 +242,13 @@ def test_wave_schedule_batches_and_symmetric_sweep(backend4):
 
 def test_refill_reuses_slot_plan(backend4):
     """psparse_refill + re-freeze at fixed sparsity must reuse the cached
-    slot plan (structure arrays identical objects) and produce the
-    refilled operator exactly."""
-    import jax
-    import numpy as np
-
+    device column table (the same array object) and produce the refilled
+    operator exactly, with no slot arrays planned on either freeze."""
     from partitionedarrays_tpu import PRange, psparse
     from partitionedarrays_tpu.parallel.p_range import uniform_partition
     from partitionedarrays_tpu.psparse import psparse_refill, spmv
     from partitionedarrays_tpu.pvector import pones
 
-    rng = np.random.default_rng(2)
     n, P = 1000, 4
     A0 = _random_banded(n, 300, 12, seed=7)
     coo = A0.tocoo()
@@ -282,24 +259,24 @@ def test_refill_reuses_slot_plan(backend4):
     cols = PRange(uniform_partition(P, n))
     A, cache = psparse(I, J, V1, rows, cols, backend4, reuse=True)
     dev1 = A.device()
+    cols1 = A._freeze_caches["oo"].get("ell_cols")
     x = pones(A.col_prange, backend4, dtype=np.float32)
     _ = spmv(A, x)
     # refill with DIFFERENT values at the same sparsity
     V2 = [2.5 * v + 1.0 for v in V1]
     psparse_refill(A, V2, cache)
     dev2 = A.device()
-    if dev1.oo.slot is not None:
-        assert dev2.oo.slot is not None
-        # the cached plan was reused (no re-planning on refill)
-        c = A._freeze_caches["oo"]
-        assert c.get("plan") is not None
-        assert np.array_equal(
-            np.asarray(dev2.oo.slot[0]), np.asarray(dev1.oo.slot[0])
+    assert not hasattr(dev2.oo, "slot")
+    assert set(A._freeze_caches["oo"]) <= {"sig", "ell_cols", "ell_K", "refs"}
+    if dev1.oo.kind == "ell":
+        assert dev2.oo.kind == "ell"
+        # the cached column table was reused (no re-upload on refill)
+        assert A._freeze_caches["oo"].get("ell_cols") is cols1
+        np.testing.assert_array_equal(
+            np.asarray(dev2.oo.cols), np.asarray(dev1.oo.cols)
         )
     y = spmv(A, x)
-    import scipy.sparse as sp2
-
-    G = sp2.csr_matrix((np.concatenate(V2), (np.concatenate(I), np.concatenate(J))), shape=(n, n))
+    G = sp.csr_matrix((np.concatenate(V2), (np.concatenate(I), np.concatenate(J))), shape=(n, n))
     ref = G @ np.ones(n)
     for p, li in enumerate(A.row_prange.partition()):
         got = np.asarray(y.own)[p, : li.n_own]
